@@ -14,3 +14,6 @@ jax.config.update("jax_enable_x64", False)
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: threaded-runtime scenario tests (~10s wall each)")
+    config.addinivalue_line(
+        "markers", "requires_cuda: needs an NVIDIA card and nvcc (skips "
+        "without them); run on the card with -m requires_cuda")
