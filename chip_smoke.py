@@ -4,22 +4,35 @@
 
 Phases, one JSON line each:
 
-1. card      the card's name and power limit (nvidia-smi), torch and CUDA
-             versions;
-2. build     builds (or loads) the hand-written kernels from
-             src/repro_torch/kernels/csrc with nvcc, all sources at once;
-3. kernels   every kernel against its plain PyTorch version on the card at
-             the reference sweep and at the serving shapes, then timed at
-             the full-width serving shape beside its plain version, one
-             PyTorch library call (the yardstick only) and its bound;
-4. reduced   SageRuntime serves the reduced qwen2.5-3b cold -> warm -> warm;
-5. full      SageRuntime serves the full-width qwen2.5-3b (36 layers,
-             d_model 2048, bf16, random weights from a seed), batch 4 x 1024
-             tokens: cold, warm, then a burst of 4 concurrent requests;
-6. the {"kernels": [...]} line, then the contract's last line.
+1. card          the card's name and power limit (nvidia-smi), torch and
+                 CUDA versions;
+2. build         builds (or loads) the hand-written kernels from
+                 src/repro_torch/kernels/csrc with nvcc, all sources at once;
+3. kernels       every kernel against its plain PyTorch version on the card
+                 at the reference sweep and at the serving shapes (TF32
+                 off), then timed at the full-width serving shape beside its
+                 plain version, one PyTorch library call where one computes
+                 the same function (the yardstick only) and its bound:
+                 flash attention (K1), decode attention (K2), SSD scan (K3);
+4. reduced       SageRuntime serves the reduced qwen2.5-3b cold -> warm -> warm;
+5. full          SageRuntime serves the full-width qwen2.5-3b (36 layers,
+                 d_model 2048, bf16, random weights from a seed), batch
+                 4 x 1024 tokens: cold, warm, then a burst of 4 concurrent;
+6. mamba_reduced the same as 4 for the reduced mamba2-780m;
+7. mamba_full    the same as 5 for the full-width mamba2-780m (48 layers,
+                 d_model 1536, SSD heads 48 x 64, state 128, chunk 128, bf16);
+8. decode        the serving steps at full width: prefill 4 x 1024 then 32
+                 greedy decode steps, for qwen2.5-3b (K1 in the prefill, K2
+                 in every step) and mamba2-780m (K3 in the prefill, the
+                 plain recurrent step after); every logit checked against
+                 the full forward of the same tokens, and the same check in
+                 fp32 at the reduced configs;
+9. the {"kernels": [...]} line, then the contract's last line.
 
-Any failed check exits non-zero before the last line. The script never
-carries on without a card: it exits non-zero and prints no result.
+Each served path sets every kernel's launch count to 0 just before it runs
+and reads the counts just after. Any failed check exits non-zero before the
+last line. The script never carries on without a card: it exits non-zero
+and prints no result.
 """
 from __future__ import annotations
 
@@ -46,13 +59,18 @@ from repro_torch.core.functions import (  # noqa: E402
     _model_function, make_model_function, make_request,
 )
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.models import forward  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.models import forward, init_cache, init_params  # noqa: E402
+from repro_torch.serving import greedy_sample, make_decode_step, make_prefill_step  # noqa: E402
 
+KERNELS = {fa.NAME: fa, dec.NAME: dec, ssd.NAME: ssd}
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound's rates
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
-TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
+TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py (attention)
+SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}  # tests/test_kernels.py (SSD)
 REF_SHAPES = [  # tests/test_kernels.py sweep: B, Sq, Sk, Hq, Hkv, Dh, causal
     (2, 128, 128, 4, 2, 64, True),
     (1, 256, 256, 8, 2, 32, True),
@@ -64,6 +82,31 @@ REF_SHAPES = [  # tests/test_kernels.py sweep: B, Sq, Sk, Hq, Hkv, Dh, causal
 REDUCED_SHAPE = (1, 16, 16, 4, 2, 16, True)        # qwen2.5-3b reduced, fp32
 FULL_SHAPE = (4, 1024, 1024, 16, 2, 128, True)     # qwen2.5-3b full, bf16
 FULL_BATCH, FULL_SEQ = 4, 1024
+DECODE_STEPS = 32
+DECODE_REF_SHAPES = [  # tests/test_kernels.py decode sweep: B, L, Hq, Hkv, Dh
+    (2, 256, 4, 2, 64),
+    (3, 300, 8, 8, 32),
+    (1, 1024, 16, 2, 128),
+    (4, 128, 8, 1, 64),
+]
+DECODE_REDUCED_SHAPE = (2, 28, 4, 2, 16)           # reduced decode check, fp32
+DECODE_FULL_SHAPE = (4, 1056, 16, 2, 128)          # qwen2.5-3b decode, bf16
+DECODE_FULL_LENGTHS = [1025, 1035, 1046, 1056]
+SSD_REF_SHAPES = [  # tests/test_kernels.py SSD sweep: B, S, H, P, N, chunk
+    (2, 64, 4, 16, 16, 16),
+    (1, 128, 2, 32, 64, 32),
+    (2, 100, 3, 16, 32, 32),
+    (1, 256, 8, 64, 128, 64),
+]
+SSD_REDUCED_SHAPE = (1, 16, 8, 16, 16, 16)         # mamba2-780m reduced, fp32
+SSD_FULL_SHAPE = (4, 1024, 48, 64, 128, 128)       # mamba2-780m prefill, bf16
+# decode logits against the full forward of the same tokens, bf16 at full
+# width: |err| <= DECODE_TOL_BF16 * max|logit| of that position. Measured on
+# an H100 (PERF.md): at most 0.013 (qwen2.5-3b) and 0.049
+# (mamba2-780m) of it; the steps' small-batch matmuls round to bf16 at other
+# places than the full forward's, over 36-48 layers. fp32 at the reduced
+# configs: tests/test_models.py's 2e-3 / 1e-3.
+DECODE_TOL_BF16 = 0.1
 
 
 def emit(obj) -> None:
@@ -75,11 +118,55 @@ def check(cond, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+def reset_counts() -> None:
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
+def counts() -> dict:
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
 def inputs(shape, dtype, seed=0):
     B, Sq, Sk, Hq, Hkv, Dh, _ = shape
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to("cuda", dtype)
             for s in ((B, Sq, Hq, Dh), (B, Sk, Hkv, Dh), (B, Sk, Hkv, Dh))]
+
+
+def decode_inputs(shape, dtype, lengths=None, seed=0):
+    B, L, Hq, Hkv, Dh = shape
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to("cuda", dtype)
+               for s in ((B, 1, Hq, Dh), (B, L, Hkv, Dh), (B, L, Hkv, Dh)))
+    if lengths is None:
+        lengths = rng.integers(1, L + 1, (B,))
+    return q, k, v, torch.tensor(np.asarray(lengths), dtype=torch.int32, device="cuda")
+
+
+def ssd_inputs(shape, dtype, seed=0):
+    B, S, H, P, N, _ = shape
+    rng = np.random.default_rng(seed)
+
+    def t(a, d=dtype):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32)).to("cuda", d)
+
+    x = t(rng.standard_normal((B, S, H, P)))
+    dt = t(np.log1p(np.exp(rng.standard_normal((B, S, H)))), torch.float32)  # softplus
+    A = t(-np.exp(rng.standard_normal(H) * 0.3), torch.float32)
+    return x, dt, A, t(rng.standard_normal((B, S, N))), t(rng.standard_normal((B, S, N)))
+
+
+def compare(outs, plains, tol):
+    """The tests' criterion, |out - plain| <= tol + tol * |plain|, and
+    finite outputs; returns (max |err|, ok)."""
+    err, ok = 0.0, True
+    for out, plain in zip(outs, plains):
+        d = (out.float() - plain.float()).abs()
+        err = max(err, d.max().item())
+        ok = ok and bool((d <= tol + tol * plain.float().abs()).all().item())
+        ok = ok and bool(torch.isfinite(out.float()).all().item())
+    return err, ok
 
 
 def time_ms(fn, reps=5, inner=10, warmup=3) -> float:
@@ -100,17 +187,45 @@ def time_ms(fn, reps=5, inner=10, warmup=3) -> float:
     return statistics.median(out)
 
 
+def bound(flops, nbytes, dtype):
+    """Least time for the work: max(operations / peak, bytes / bandwidth)."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def attention_bound_ms(shape, dtype):
-    """Least time for the work: max(operations / peak, bytes / bandwidth).
-    Operations: 2 matmuls x 2 flops per (query, visible key) pair per head
+    """Operations: 2 matmuls x 2 flops per (query, visible key) pair per head
     dim; with the causal mask only keys k <= q are visible. Bytes: q, k, v
     read once and o written once."""
     B, Sq, Sk, Hq, Hkv, Dh, causal = shape
     pairs = sum(min(Sk, qp + 1) for qp in range(Sq)) if causal else Sq * Sk
     flops = 4.0 * B * Hq * Dh * pairs
     nbytes = (2 * B * Sq * Hq * Dh + 2 * B * Sk * Hkv * Dh) * torch.finfo(dtype).bits / 8
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+    return (*bound(flops, nbytes, dtype), flops, nbytes)
+
+
+def decode_bound_ms(shape, lengths, dtype):
+    """As ``attention_bound_ms`` for one query per sequence, counted up to
+    this run's lengths: 4 flops per (query head, cache position, head dim);
+    bytes: q read, K and V up to each length read, o written."""
+    B, L, Hq, Hkv, Dh = shape
+    visible = float(sum(lengths))
+    flops = 4.0 * Hq * Dh * visible
+    nbytes = (2 * B * Hq * Dh + 2 * Hkv * Dh * visible) * torch.finfo(dtype).bits / 8
+    return (*bound(flops, nbytes, dtype), flops, nbytes)
+
+
+def ssd_bound_ms(shape, dtype):
+    """Operations as the TPU kernel does them, per (sequence, head, chunk):
+    C B^T (2 T T N), the masked product with x*dt (2 T T P), C times the
+    state (2 T N P) and the state update (2 T P N). Bytes: x, dt, B, C read
+    once, y and the fp32 final state written once."""
+    B, S, H, P, N, T = shape
+    chunks = -(-S // T)
+    flops = 2.0 * T * (T * N + T * P + 2 * N * P) * B * H * chunks
+    elt = torch.finfo(dtype).bits / 8
+    nbytes = elt * (2 * B * S * H * P + 2 * B * S * N) + 4 * (B * S * H + H + B * H * P * N)
+    return (*bound(flops, nbytes, dtype), flops, nbytes)
 
 
 def phase_card():
@@ -130,10 +245,11 @@ def phase_card():
 
 def phase_build():
     t0 = time.monotonic()
-    _build.build([fa.NAME])
-    fa.load()
-    ptxas = [ln.strip() for ln in _build.ptxas_log.get(fa.NAME, "").splitlines()
-             if "registers" in ln or "spill" in ln]
+    _build.build(list(KERNELS))
+    for mod in KERNELS.values():
+        mod.load()
+    ptxas = {name: [ln.strip() for ln in _build.ptxas_log.get(name, "").splitlines()
+                    if "registers" in ln or "spill" in ln] for name in KERNELS}
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
           "nvcc_seconds": _build.build_seconds, "flags": _build.NVCC_FLAGS,
           "ptxas": ptxas})
@@ -149,14 +265,9 @@ def phase_kernels():
         out = ops.flash_attention(q, k, v, causal=shape[-1], use_kernel=True)
         torch.cuda.synchronize()
         plain = ops.flash_attention(q, k, v, causal=shape[-1], use_kernel=False)
-        err = (out.float() - plain.float()).abs().max().item()
-        tol = TOL[dtype]
-        # the tests' criterion: |out - plain| <= tol + tol * |plain|
-        ok = bool(((out.float() - plain.float()).abs()
-                   <= tol + tol * plain.float().abs()).all().item())
-        ok = ok and bool(torch.isfinite(out.float()).all().item())
+        err, ok = compare([out], [plain], TOL[dtype])
         results.append({"shape": list(shape), "dtype": str(dtype).split(".")[1],
-                        "max_abs_err": err, "tol": tol, "ok": ok})
+                        "max_abs_err": err, "tol": TOL[dtype], "ok": ok})
         check(ok, f"flash_attention kernel disagrees at {shape} {dtype}: {err}")
         worst = max(worst, err)
     emit({"phase": "kernels", "kernel": fa.NAME, "cases": results})
@@ -178,13 +289,108 @@ def phase_kernels():
         "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
     }
     timing["ms_again"] = time_ms(kern)  # spread: same call, same inputs
-    bound, bound_by, flops, nbytes = attention_bound_ms(FULL_SHAPE, torch.bfloat16)
+    bound_ms, bound_by, flops, nbytes = attention_bound_ms(FULL_SHAPE, torch.bfloat16)
     emit({"phase": "kernel_timing", "kernel": fa.NAME, "shape": list(FULL_SHAPE),
-          "dtype": "bfloat16", **timing, "bound_ms": bound, "bound_by": bound_by,
+          "dtype": "bfloat16", **timing, "bound_ms": bound_ms, "bound_by": bound_by,
           "flops": flops, "bytes": nbytes, "library": "scaled_dot_product_attention, "
           "GQA expanded outside the timed call", "library_max_abs_err": lib_err,
           "tflops": flops / timing["ms"] / 1e9})
-    return worst, timing, bound, bound_by
+    return {"max_abs_err": worst, **timing, "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": list(FULL_SHAPE)}
+
+
+def phase_kernels_decode():
+    results, worst = [], 0.0
+    cases = [(s, d, None) for s in DECODE_REF_SHAPES for d in (torch.float32, torch.bfloat16)]
+    cases += [(DECODE_REDUCED_SHAPE, torch.float32, None),
+              (DECODE_FULL_SHAPE, torch.bfloat16, DECODE_FULL_LENGTHS)]
+    for shape, dtype, lengths in cases:
+        q, k, v, lens = decode_inputs(shape, dtype, lengths)
+        out = ops.decode_attention(q, k, v, lens, use_kernel=True)
+        torch.cuda.synchronize()
+        plain = ops.decode_attention(q, k, v, lens, use_kernel=False)
+        err, ok = compare([out], [plain], TOL[dtype])
+        results.append({"shape": list(shape), "dtype": str(dtype).split(".")[1],
+                        "lengths": lens.tolist(), "max_abs_err": err, "tol": TOL[dtype],
+                        "ok": ok})
+        check(ok, f"decode_attention kernel disagrees at {shape} {dtype}: {err}")
+        worst = max(worst, err)
+    emit({"phase": "kernels", "kernel": dec.NAME, "cases": results})
+
+    q, k, v, lens = decode_inputs(DECODE_FULL_SHAPE, torch.bfloat16, DECODE_FULL_LENGTHS)
+    B, L, Hq, Hkv, Dh = DECODE_FULL_SHAPE
+    G = Hq // Hkv
+    qt = q.transpose(1, 2)                                    # (B, Hq, 1, Dh)
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2)        # (B, Hq, L, Dh)
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+    mask = (torch.arange(L, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = sdpa(qt, kt, vt, attn_mask=mask).transpose(1, 2)
+    plain = ops.decode_attention(q, k, v, lens, use_kernel=False)
+    lib_err = (lib.float() - plain.float()).abs().max().item()
+    kern = lambda: ops.decode_attention(q, k, v, lens, use_kernel=True)  # noqa: E731
+    timing = {
+        "plain_ms": time_ms(lambda: ops.decode_attention(q, k, v, lens, use_kernel=False)),
+        "ms": time_ms(kern),
+        "library_ms": time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask)),
+    }
+    timing["ms_again"] = time_ms(kern)
+    bound_ms, bound_by, flops, nbytes = decode_bound_ms(
+        DECODE_FULL_SHAPE, DECODE_FULL_LENGTHS, torch.bfloat16)
+    emit({"phase": "kernel_timing", "kernel": dec.NAME, "shape": list(DECODE_FULL_SHAPE),
+          "lengths": DECODE_FULL_LENGTHS, "dtype": "bfloat16", **timing,
+          "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+          "library": "scaled_dot_product_attention with a boolean length mask, GQA "
+          "expanded outside the timed call", "library_max_abs_err": lib_err,
+          "gbytes_per_s": nbytes / timing["ms"] / 1e6})
+    return {"max_abs_err": worst, **timing, "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": list(DECODE_FULL_SHAPE)}
+
+
+def phase_kernels_ssd():
+    results, worst = [], 0.0
+    cases = [(s, d) for s in SSD_REF_SHAPES for d in (torch.float32, torch.bfloat16)]
+    cases += [(SSD_REDUCED_SHAPE, torch.float32), (SSD_FULL_SHAPE, torch.bfloat16)]
+    for shape, dtype in cases:
+        args = ssd_inputs(shape, dtype)
+        out = ops.ssd_scan(*args, chunk=shape[-1], use_kernel=True)
+        torch.cuda.synchronize()
+        plain = ops.ssd_scan(*args, chunk=shape[-1], use_kernel=False)
+        err, ok = compare(out, plain, SSD_TOL[dtype])
+        results.append({"shape": list(shape), "dtype": str(dtype).split(".")[1],
+                        "max_abs_err": err, "tol": SSD_TOL[dtype], "ok": ok})
+        check(ok, f"ssd_scan kernel disagrees at {shape} {dtype}: {err}")
+        worst = max(worst, err)
+    # a scan continued from an initial state (no padded copy, no oracle)
+    args = ssd_inputs(SSD_REF_SHAPES[2], torch.float32)
+    s0 = torch.randn((2, 3, 16, 32), device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(0))
+    out = ops.ssd_scan(*args, chunk=32, initial_state=s0, use_kernel=True)
+    plain = ops.ssd_scan(*args, chunk=32, initial_state=s0, use_kernel=False)
+    err, ok = compare(out, plain, SSD_TOL[torch.float32])
+    results.append({"shape": list(SSD_REF_SHAPES[2]), "dtype": "float32",
+                    "initial_state": True, "max_abs_err": err, "ok": ok})
+    check(ok, f"ssd_scan kernel disagrees with an initial state: {err}")
+    emit({"phase": "kernels", "kernel": ssd.NAME, "cases": results})
+
+    args = ssd_inputs(SSD_FULL_SHAPE, torch.bfloat16)
+    chunk = SSD_FULL_SHAPE[-1]
+    kern = lambda: ops.ssd_scan(*args, chunk=chunk, use_kernel=True)  # noqa: E731
+    timing = {
+        "plain_ms": time_ms(lambda: ops.ssd_scan(*args, chunk=chunk, use_kernel=False),
+                            reps=3, inner=3),
+        "ms": time_ms(kern, inner=5),
+        "library_ms": None,
+    }
+    timing["ms_again"] = time_ms(kern, inner=5)
+    bound_ms, bound_by, flops, nbytes = ssd_bound_ms(SSD_FULL_SHAPE, torch.bfloat16)
+    emit({"phase": "kernel_timing", "kernel": ssd.NAME, "shape": list(SSD_FULL_SHAPE),
+          "dtype": "bfloat16", **timing, "bound_ms": bound_ms, "bound_by": bound_by,
+          "flops": flops, "bytes": nbytes,
+          "library": "none: no single PyTorch call computes the chunked SSD scan",
+          "tflops": flops / timing["ms"] / 1e9})
+    return {"max_abs_err": worst, **timing, "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": list(SSD_FULL_SHAPE)}
 
 
 def drain(rt) -> dict:
@@ -202,45 +408,53 @@ def record(r) -> dict:
             "stages_s": dict(r.stages), "error": r.error}
 
 
-def phase_reduced():
+def phase_reduced(phase, arch, kernel):
+    """SageRuntime serves the reduced ``arch`` cold -> warm -> warm; every
+    request launches ``kernel`` once per layer and nothing else."""
     rt = SageRuntime("sage", time_scale=0.02, exit_ttl=5.0, device="cuda")
     rt.sage_init()
-    fn = make_model_function(rt.db, "f", arch="qwen2.5-3b", seed=3)
+    fn = make_model_function(rt.db, "f", arch=arch, seed=3)
     rt.register_function(fn)
     reqs = [make_request(rt.db, fn, seed=s) for s in (0, 1, 2)]
     served, per_request = [], []
-    fa.launches = 0  # -- the main path (reduced) starts here
+    reset_counts()  # -- the main path (reduced) starts here
     for req in reqs:
-        before = fa.launches
+        before = kernel.launches
         served.append(rt.db.fetch(rt.sage_run(req)))
-        per_request.append(fa.launches - before)
-    launches = fa.launches  # -- and ends here
+        per_request.append(kernel.launches - before)
+    launches = counts()  # -- and ends here
     recs = rt.telemetry.records
     warm = [r.warm_stage for r in recs]
     stats = dict(rt.daemon.stats)
     usage = drain(rt)
 
-    cfg = ARCHS["qwen2.5-3b"].reduced()
+    cfg = ARCHS[arch].reduced()
     weights = rt.db.fetch("f/weights")  # the host copy
     errs = []
     for req, out in zip(reqs, served):
         toks = rt.db.fetch(req.in_data[1].key)
-        plain, _ = forward(cfg, weights, {"tokens": toks})  # CPU: plain attention
+        plain, _ = forward(cfg, weights, {"tokens": toks})  # CPU: plain versions
         errs.append(float(np.abs(out - plain[:, -1, :8].numpy()).max()))
-    emit({"phase": "reduced", "warm_stage": warm, "shared_hits": stats["shared_hits"],
-          "loads": stats["loads"], "launches": launches,
-          "launches_per_request": per_request, "max_abs_err_vs_cpu_plain": max(errs),
-          "tol": 1e-4, "requests": [record(r) for r in recs], "usage_after": usage})
+    layers = cfg.num_layers
+    emit({"phase": phase, "arch": cfg.name, "warm_stage": warm,
+          "shared_hits": stats["shared_hits"], "loads": stats["loads"],
+          "launches": launches, "launches_per_request": per_request,
+          "max_abs_err_vs_cpu_plain": max(errs), "tol": 1e-4,
+          "requests": [record(r) for r in recs], "usage_after": usage})
     check(warm == [None, 1, 1], f"warm_stage {warm}")
     check(stats["shared_hits"] >= 1, "no shared hit")
-    check(per_request == [2, 2, 2], f"launches per request {per_request}")
+    check(per_request == [layers] * 3, f"launches per request {per_request}")
+    check(sum(launches.values()) == launches[kernel.NAME], f"other kernels ran: {launches}")
     check(max(errs) <= 1e-4, f"served logits differ from the CPU forward: {errs}")
     check(usage["device_used"] == usage["host_used"] == 0, f"teardown {usage}")
-    return launches
+    return launches[kernel.NAME]
 
 
-def phase_full():
-    cfg = ARCHS["qwen2.5-3b"]  # unreduced: the published widths and depth
+def phase_full(phase, arch, kernel, fn_name):
+    """SageRuntime serves the unreduced ``arch`` (published widths and
+    depth, bf16, random weights from seed 0), batch 4 x 1024: cold, warm,
+    then a burst of 4 concurrent requests."""
+    cfg = ARCHS[arch]
     check(cfg.param_dtype == cfg.compute_dtype == "bfloat16", "full width is bf16")
     gc.collect()
     base_alloc = torch.cuda.memory_allocated()
@@ -249,25 +463,25 @@ def phase_full():
                      exit_ttl=60.0, device="cuda")
     rt.sage_init()
     t0 = time.monotonic()
-    fn = _model_function(rt.db, "qwen", cfg, batch=FULL_BATCH, seq=FULL_SEQ, seed=0)
+    fn = _model_function(rt.db, fn_name, cfg, batch=FULL_BATCH, seq=FULL_SEQ, seed=0)
     init_s = time.monotonic() - t0
     rt.register_function(fn)
-    ro_bytes = rt.db.size_of("qwen/weights")
+    ro_bytes = rt.db.size_of(f"{fn_name}/weights")
     modelled_s = (ro_bytes / rt.paths.db.base_bw + ro_bytes / rt.paths.pcie.base_bw) * time_scale
     reqs = [make_request(rt.db, fn, batch=FULL_BATCH, seq=FULL_SEQ,
                          vocab=cfg.vocab_size, seed=s) for s in range(6)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0  # -- the main path (full width) starts here
+    reset_counts()  # -- the main path (full width) starts here
     t0 = time.monotonic()
     out_keys = [rt.sage_run(reqs[0])]
-    cold_launches = fa.launches
+    cold_launches = kernel.launches
     out_keys.append(rt.sage_run(reqs[1]))
     futs = [rt.submit(r) for r in reqs[2:]]
     out_keys += [f.result(timeout=600) for f in futs]
     torch.cuda.synchronize()
     wall_s = time.monotonic() - t0
-    launches = fa.launches  # -- and ends here
+    launches = counts()  # -- and ends here
     peak = torch.cuda.max_memory_allocated()
     recs = rt.telemetry.records
     stats = dict(rt.daemon.stats)
@@ -275,7 +489,7 @@ def phase_full():
 
     # one served request against the direct forward of the same weights and
     # tokens on the card (these launches are a comparison, not the path)
-    weights = rt.db.to_device(rt.db.fetch("qwen/weights"))
+    weights = rt.db.to_device(rt.db.fetch(f"{fn_name}/weights"))
     toks = rt.db.fetch(reqs[0].in_data[1].key).cuda()
     with torch.inference_mode():
         direct = forward(cfg, weights, {"tokens": toks})[0][:, -1, :8].float().cpu().numpy()
@@ -290,7 +504,7 @@ def phase_full():
     torch._C._cuda_clearCublasWorkspaces()
     after = torch.cuda.memory_allocated()
     n_layers = cfg.num_layers
-    emit({"phase": "full", "arch": cfg.name, "params": cfg.param_count(),
+    emit({"phase": phase, "arch": cfg.name, "params": cfg.param_count(),
           "ro_bytes": ro_bytes, "batch": FULL_BATCH, "seq": FULL_SEQ,
           "init_s": init_s, "time_scale": time_scale, "load_timeout_s": load_timeout_s,
           "modelled_load_s": modelled_s, "wall_s": wall_s,
@@ -304,32 +518,188 @@ def phase_full():
     check(all(r.error is None for r in recs), "a request failed")
     check(len(recs) == 6 and recs[0].warm_stage is None, "cold request")
     check(cold_launches == n_layers, f"cold request launched {cold_launches}")
-    check(launches == 6 * n_layers, f"{launches} launches for 6 requests")
+    check(launches[kernel.NAME] == 6 * n_layers, f"{launches} launches for 6 requests")
+    check(sum(launches.values()) == launches[kernel.NAME], f"other kernels ran: {launches}")
     check(stats["shared_hits"] >= 5, f"shared_hits {stats['shared_hits']}")
     check(all(np.isfinite(s).all() and s.shape == (FULL_BATCH, 8) for s in served),
           "served logits not finite")
     check(direct_err <= 1e-3, f"served differs from the direct forward: {direct_err}")
     check(usage["device_used"] == usage["host_used"] == 0, f"teardown {usage}")
     check(after <= base_alloc, f"device memory not freed: {after} > {base_alloc} bytes")
-    return launches
+    return launches[kernel.NAME]
+
+
+def profiled(fn):
+    """Run ``fn`` once under torch.profiler; returns (its result, the
+    device-busy ms summed over kernels and copies, the host wall ms of the
+    profiled run and the six largest device-time entries)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    # kernels, copies and sets run on the device; CPU ops only launch them
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    return out, {"device_busy_ms": busy_ms, "profiled_wall_ms": wall_ms,
+                 "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top]}
+
+
+def generate(cfg, params, prompt, steps, profile_it=False):
+    """Prefill then ``steps`` greedy decode steps through the serving step
+    factories. Returns (the logits of the prefill and of every step, the
+    fed-back tokens, per-step ms, prefill ms, launch counts of the prefill
+    and of the decode loop, and with ``profile_it`` a profiler breakdown of
+    a repeated prefill (it rewrites the same cache entries) and of the last
+    step)."""
+    B, S = prompt.shape
+    prefill_step, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    cache = init_cache(cfg, B, S + steps)
+    torch.cuda.synchronize()
+    reset_counts()  # -- the prefill path starts here
+    t0 = time.monotonic()
+    logits, cache = prefill_step(params, {"tokens": prompt}, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    prefill_counts = counts()  # -- and ends here
+    prof = {}
+    if profile_it:
+        _, prof["prefill"] = profiled(lambda: prefill_step(params, {"tokens": prompt}, cache))
+    outs, fed, step_ms = [logits], [], []
+    positions = torch.full((B,), S, dtype=torch.int32, device=prompt.device)
+    reset_counts()  # -- the decode path starts here
+    for i in range(steps):
+        nxt = greedy_sample(outs[-1])
+        fed.append(nxt)
+        step = lambda: decode(params, nxt[:, None], positions, cache)  # noqa: E731
+        if profile_it and i == steps - 1:
+            (logits, cache), prof["decode_step"] = profiled(step)
+        else:
+            t0 = time.monotonic()
+            logits, cache = step()
+            torch.cuda.synchronize()
+            step_ms.append((time.monotonic() - t0) * 1e3)
+        outs.append(logits)
+        positions = positions + 1
+    decode_counts = counts()  # -- and ends here
+    return (outs, torch.stack(fed, dim=1), step_ms, prefill_ms, prefill_counts,
+            decode_counts, prof)
+
+
+def decode_errors(cfg, params, prompt, outs, fed):
+    """Each logit row of ``generate`` against the full forward over the
+    prompt plus the fed-back tokens at that position (causal: one forward
+    gives every position). Returns per-position max |err| and max |logit|."""
+    tokens = torch.cat([prompt, fed], dim=1)
+    full = forward(cfg, params, {"tokens": tokens})[0]
+    S = prompt.shape[1]
+    errs, scale = [], []
+    for i, lg in enumerate(outs):
+        ref = full[:, S - 1 + i]
+        errs.append((lg.float() - ref).abs().max().item())
+        scale.append(ref.abs().max().item())
+    del full
+    return errs, scale
+
+
+def phase_decode(arch, kernel_paths):
+    """The serving steps of ``arch`` at full width (bf16, seed 0): prefill
+    4 x 1024, then 32 greedy steps; then the same check in fp32 at the
+    reduced config (B 2, prompt 16, 8 steps: tests/test_models.py's)."""
+    cfg = ARCHS[arch]
+    gc.collect()
+    base_alloc = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        params = init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+        rng = np.random.default_rng(5)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (FULL_BATCH, FULL_SEQ),
+                                               dtype=np.int32)).cuda()
+        outs, fed, step_ms, prefill_ms, pre_counts, dec_counts, prof = generate(
+            cfg, params, prompt, DECODE_STEPS, profile_it=True)
+        errs, scale = decode_errors(cfg, params, prompt, outs, fed)
+        del params, outs
+        rcfg = cfg.reduced()
+        rparams = init_params(rcfg, torch.Generator("cuda").manual_seed(1), "cuda")
+        rtoks = torch.from_numpy(np.random.default_rng(2).integers(
+            0, rcfg.vocab_size, (2, 24), dtype=np.int32)).cuda()
+        routs, rfed = generate(rcfg, rparams, rtoks[:, :16], 8)[:2]
+        rfull = forward(rcfg, rparams, {"tokens": torch.cat([rtoks[:, :16], rfed], 1)})[0]
+        r_ok, r_err = True, 0.0
+        for i, lg in enumerate(routs):
+            ref = rfull[:, 15 + i]
+            d = (lg - ref).abs()
+            r_err = max(r_err, d.max().item())
+            r_ok = r_ok and bool((d <= 2e-3 + 1e-3 * ref.abs()).all().item())
+        del rparams, rfull
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = [e / s for e, s in zip(errs, scale)]
+    layers = cfg.num_layers
+    emit({"phase": "decode", "arch": cfg.name, "batch": FULL_BATCH, "prompt": FULL_SEQ,
+          "steps": DECODE_STEPS, "prefill_ms": prefill_ms, "step_ms": step_ms,
+          "step_ms_median": statistics.median(step_ms), "profile": prof,
+          "decode_step_device_idle_share":
+              1 - prof["decode_step"]["device_busy_ms"] / statistics.median(step_ms),
+          "prefill_launches": pre_counts, "decode_launches": dec_counts,
+          "max_abs_err_vs_forward": errs, "max_abs_logit": scale,
+          "max_rel_err": max(rel), "tol_rel_bf16": DECODE_TOL_BF16,
+          "reduced_fp32_max_abs_err": r_err, "reduced_fp32_tol": [2e-3, 1e-3],
+          "memory_allocated_after": torch.cuda.memory_allocated(),
+          "memory_allocated_before": base_alloc})
+    mixer = {s.mixer for s in cfg.period_spec()}
+    want_pre = {fa.NAME: layers if "attn" in mixer else 0, dec.NAME: 0,
+                ssd.NAME: layers if "mamba" in mixer else 0}
+    want_dec = {fa.NAME: 0, dec.NAME: DECODE_STEPS * layers if "attn" in mixer else 0,
+                ssd.NAME: 0}
+    check(pre_counts == want_pre, f"{arch} prefill launches {pre_counts} != {want_pre}")
+    check(dec_counts == want_dec, f"{arch} decode launches {dec_counts} != {want_dec}")
+    check(all(np.isfinite(e) for e in errs), f"{arch} decode logits not finite")
+    check(max(rel) <= DECODE_TOL_BF16, f"{arch} decode differs from the forward: {max(rel)}")
+    check(r_ok, f"{arch} reduced fp32 decode differs from the forward: {r_err}")
+    for name in KERNELS:
+        kernel_paths[name]["prefill"] += pre_counts[name]
+        kernel_paths[name]["decode"] += dec_counts[name]
 
 
 def main():
+    t_start = time.monotonic()
     smi = phase_card()
     phase_build()
-    worst, timing, bound, bound_by = phase_kernels()
-    reduced_launches = phase_reduced()
-    full_launches = phase_full()
+    timings = {fa.NAME: phase_kernels(), dec.NAME: phase_kernels_decode(),
+               ssd.NAME: phase_kernels_ssd()}
+    paths = {name: dict.fromkeys(("reduced", "full_width", "mamba_reduced", "mamba_full",
+                                  "prefill", "decode"), 0) for name in KERNELS}
+    paths[fa.NAME]["reduced"] = phase_reduced("reduced", "qwen2.5-3b", fa)
+    paths[fa.NAME]["full_width"] = phase_full("full", "qwen2.5-3b", fa, "qwen")
+    paths[ssd.NAME]["mamba_reduced"] = phase_reduced("mamba_reduced", "mamba2-780m", ssd)
+    paths[ssd.NAME]["mamba_full"] = phase_full("mamba_full", "mamba2-780m", ssd, "mamba")
+    phase_decode("qwen2.5-3b", paths)
+    phase_decode("mamba2-780m", paths)
+    main_path = {fa.NAME: "full_width", dec.NAME: "decode", ssd.NAME: "mamba_full"}
+    replaces = {
+        fa.NAME: "src/repro/kernels/flash_attention.py:37",
+        dec.NAME: "src/repro/kernels/decode_attention.py:29",
+        ssd.NAME: "src/repro/kernels/ssd_scan.py:38",
+    }
+    for name in KERNELS:
+        check(paths[name][main_path[name]] > 0, f"{name} never launched on its path")
+    emit({"phase": "wall", "seconds": time.monotonic() - t_start})
     emit({"kernels": [{
-        "name": fa.NAME, "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:37",
-        "launches": full_launches,
-        "launches_by_path": {"reduced": reduced_launches, "full_width": full_launches},
-        "max_abs_err": worst, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": bound, "bound_by": bound_by, "library_ms": timing["library_ms"],
-        "shape": list(FULL_SHAPE), "card": smi,
-    }]})
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        "replaces": replaces[name],
+        "launches": paths[name][main_path[name]],
+        "launches_by_path": paths[name],
+        "max_abs_err": t["max_abs_err"], "ms": t["ms"], "ms_again": t["ms_again"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"], "shape": t["shape"], "card": smi,
+    } for name, t in timings.items()]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,8 +3,9 @@
 The real runtime serves *actual* models: the GPU context is the loaded
 kernel library (built once per process from ``kernels/csrc``) plus the
 forward callable, weights are a real dict of tensors fetched from the
-database, compute is the real forward pass with the hand-written attention
-kernel on the card. Declared sizes (A100-scale, from paper Table 2 profiles
+database, compute is the real forward pass with the hand-written kernels
+on the card (flash attention for attention mixers, the SSD scan for Mamba2
+mixers). Declared sizes (A100-scale, from paper Table 2 profiles
 or the arch's true byte count) drive the brokered transfer times and memory
 accounting.
 """
@@ -22,6 +23,7 @@ from repro_torch.core.profiles import MB, FunctionProfile
 from repro_torch.core.request import Data, DataType, Request
 from repro_torch.data.database import Database
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.models import forward, init_params
 
 
@@ -79,7 +81,8 @@ def _model_function(
     declared_ro_bytes: Optional[int] = None,
     seed: int = 0,
 ) -> GPUFunction:
-    """``make_model_function`` for any dense ``cfg`` (full width included)."""
+    """``make_model_function`` for any ported ``cfg`` — dense or Mamba2,
+    full width included."""
     params = _host_params(cfg, seed, db.device)
     real_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     ro_bytes = declared_ro_bytes or (
@@ -87,14 +90,18 @@ def _model_function(
     )
     weights_key = f"{fn_name}/weights"
     db.put(weights_key, params, size=ro_bytes)
-    on_card = db.device.type == "cuda"
+    # the kernel libraries this cfg's forward launches on the card
+    kernels = []
+    if db.device.type == "cuda":
+        mixers = {s.mixer for s in cfg.period_spec()}
+        kernels = [k for k, m in ((_fa, "attn"), (_ssd, "mamba")) if m in mixers]
 
     def context_builder():
         # the 'GPU context': shape-only work that never touches the weights
         # (the knowability property that makes parallel setup possible) —
-        # build or load the kernel library the forward will launch
-        if on_card:
-            _fa.load()
+        # build or load the kernel libraries the forward will launch
+        for k in kernels:
+            k.load()
 
         def fwd(p, t):
             # inference_mode is thread-local: entered on the executor thread

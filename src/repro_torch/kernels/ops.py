@@ -8,14 +8,18 @@
 * ``use_kernel=False``: the plain version on whatever device the tensors are
   (``chip_smoke.py`` compares the kernel with it on the card).
 
-``decode_attention`` and ``ssd_scan`` are not ported yet (ROADMAP.md).
+Unlike the JAX ``ops.ssd_scan``, which takes its oracle whenever
+``initial_state`` is given, the CUDA SSD kernel takes an initial state, so
+here too the choice follows the device alone.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def _resolve(use_kernel, x: torch.Tensor) -> bool:
@@ -38,3 +42,18 @@ def flash_attention(q, k, v, *, causal=True, block_q=512, block_k=512,
                                    block_k=block_k, scale=scale)
     return _ref.flash_attention(q, k, v, causal=causal, block_q=block_q,
                                 block_k=block_k, scale=scale)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *, block_k=1024, scale=None,
+                     use_kernel="auto"):
+    if _resolve(use_kernel, q):
+        return _dec.decode_attention(q, k_cache, v_cache, lengths, block_k=block_k,
+                                     scale=scale)
+    return _ref.decode_attention(q, k_cache, v_cache, lengths, block_k=block_k,
+                                 scale=scale)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk=128, initial_state=None, use_kernel="auto"):
+    if _resolve(use_kernel, x):
+        return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state)
+    return _ref.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state)

@@ -1,12 +1,19 @@
 """Plain PyTorch versions of the hand-written kernels.
 
-``flash_attention`` is the blockwise online-softmax attention of the JAX
-package's ``repro.models.layers.flash_attention_ref``: causal mode splits
-each query block into a mask-free prefix rectangle plus a masked diagonal
-block merged by one online-softmax combine; non-causal mode scans fixed-size
-kv blocks. It lives here (not in ``models.layers``) so that ``kernels`` never
-imports ``models``; ``models.layers`` re-exports it as
-``flash_attention_ref``.
+* ``flash_attention`` is the blockwise online-softmax attention of the JAX
+  package's ``repro.models.layers.flash_attention_ref``: causal mode splits
+  each query block into a mask-free prefix rectangle plus a masked diagonal
+  block merged by one online-softmax combine; non-causal mode scans
+  fixed-size kv blocks.
+* ``decode_attention`` is ``repro.models.layers.decode_attention_ref``: one
+  query token per sequence against a KV cache in one dense masked pass.
+* ``ssd_scan`` is ``repro.models.mamba2.ssd_chunked_ref`` (with
+  ``_segsum``): Mamba2's chunked SSD scan with an optional initial state.
+
+They live here (not in ``models``) so that ``kernels`` never imports
+``models``; ``models.layers`` re-exports the first two as
+``flash_attention_ref`` / ``decode_attention_ref`` and ``models.mamba2``
+the third as ``ssd_chunked_ref``.
 
 It is what the CPU tests run, what ``ops`` takes for a CPU tensor, and what
 ``chip_smoke.py`` holds the CUDA kernel against on the card.
@@ -14,9 +21,10 @@ It is what the CPU tests run, what ``ops`` takes for a CPU tensor, and what
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -118,3 +126,110 @@ def flash_attention(
         outs.append(_combine_partials(parts))
     out = torch.cat(outs, dim=1)
     return out.reshape(B, Sq, Hq, Dh).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,        # (B, 1, Hq, Dh)
+    k_cache: torch.Tensor,  # (B, L, Hkv, Dh)
+    v_cache: torch.Tensor,  # (B, L, Hkv, Dh)
+    lengths: torch.Tensor,  # (B,) valid cache length per sequence (incl. new token)
+    *,
+    scale: Optional[float] = None,
+    block_k: int = 1024,
+) -> torch.Tensor:
+    """Single-token attention against the cache, positions ``>= lengths``
+    masked; one dense pass with fp32 scores and accumulation, P rounded to
+    V's dtype before P·V. ``block_k`` is kept for the JAX signature. At
+    length 0 every score is masked and the result is the mean of V (the
+    CUDA kernel returns 0 there, as the TPU kernel does). Returns
+    (B, 1, Hq, Dh) in q's dtype."""
+    del block_k
+    B, _, Hq, Dh = q.shape
+    L, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    qg = q.reshape(B, 1, Hkv, G, Dh)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg.float(), k_cache.float()) * scale
+    mask = (torch.arange(L, device=q.device)[None, None, None, None, :]
+            < lengths.to(q.device)[:, None, None, None, None])
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bqhgk,bkhd->bqhgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, 1, Hq, Dh).to(q.dtype)
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular segment sums: out[..., i, j] = sum_{j < k <= i} x[..., k].
+
+    x: (..., T) -> (..., T, T), -inf above the diagonal.
+    """
+    T = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]  # sum_(j, i] = cs[i] - cs[j]
+    ii = torch.arange(T, device=x.device)
+    mask = ii[:, None] >= ii[None, :]
+    return torch.where(mask, diff, -math.inf)
+
+
+def ssd_scan(
+    x: torch.Tensor,   # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H)  (already softplus'd, > 0)
+    A: torch.Tensor,   # (H,)       (negative)
+    Bm: torch.Tensor,  # (B, S, N)
+    Cm: torch.Tensor,  # (B, S, N)
+    *,
+    chunk: int = 128,
+    initial_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan, all in fp32. Returns (y (B,S,H,P) in x's dtype,
+    final_state (B,H,P,N) fp32). A ragged last chunk is padded with dt = 0,
+    which leaves the state unchanged (decay exp(0) = 1, update 0)."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:  # dt=0 padding is state-neutral: decay=exp(0)=1, update=0
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    S_out, S = S, S + pad
+    nc = S // chunk
+    f32 = torch.float32
+
+    xb = (x.to(f32) * dt.to(f32)[..., None]).reshape(Bsz, nc, chunk, H, P)
+    dA = (dt.to(f32) * A.to(f32)).reshape(Bsz, nc, chunk, H)  # (B,c,l,H)
+    Bc = Bm.to(f32).reshape(Bsz, nc, chunk, N)
+    Cc = Cm.to(f32).reshape(Bsz, nc, chunk, N)
+
+    dA_cs = torch.cumsum(dA, dim=2)  # (B,c,l,H) inclusive cumsum within chunk
+    # --- intra-chunk (diagonal blocks): quadratic attention-like form
+    Lmat = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))  # (B,c,H,l,l)
+    CB = torch.einsum("bcln,bcsn->bcls", Cc, Bc)  # (B,c,l,s)
+    M = CB[:, :, None] * Lmat  # (B,c,H,l,s)
+    y_diag = torch.einsum("bchls,bcshp->bclhp", M, xb)
+
+    # --- chunk-final states: S_c = sum_s B_s x_s * exp(dA_end - dA_cs_s)
+    decay_states = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)  # (B,c,l,H)
+    states = torch.einsum("bcln,bclh,bclhp->bchpn", Bc, decay_states, xb)
+
+    # --- inter-chunk recurrence over chunk states (the JAX lax.scan)
+    chunk_decay = torch.exp(dA_cs[:, :, -1, :])  # (B,c,H)
+    s = (initial_state.to(f32) if initial_state is not None
+         else torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device))
+    prev = []
+    for c in range(nc):
+        prev.append(s)  # the state entering chunk c
+        s = s * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)  # (B,c,H,P,N)
+
+    # --- inter-chunk contribution: C_l · state_in · exp(dA_cs_l)
+    state_decay = torch.exp(dA_cs)  # (B,c,l,H)
+    y_off = torch.einsum("bcln,bchpn,bclh->bclhp", Cc, prev_states, state_decay)
+
+    y = (y_diag + y_off).reshape(Bsz, S, H, P)[:, :S_out]
+    return y.to(x.dtype), s

@@ -1,1 +1,3 @@
-from repro_torch.models.model import forward, init_params  # noqa: F401
+from repro_torch.models.model import (  # noqa: F401
+    decode_step, forward, init_cache, init_params, prefill,
+)

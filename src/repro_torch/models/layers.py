@@ -1,4 +1,5 @@
-"""Shared model layers, dense subset (plain functions on tensors).
+"""Shared model layers: dense attention (full sequence and one-token decode
+against a cache), SwiGLU MLP, embedding (plain functions on tensors).
 
 Conventions (as in the JAX package's ``repro.models.layers``)
 -----------------------------------------------------------
@@ -9,9 +10,9 @@ Conventions (as in the JAX package's ``repro.models.layers``)
   where the reference has them: ``rms_norm``, the rope math, ``silu`` and
   the unembedding's output.
 * attention goes through ``repro_torch.kernels.ops``: the hand-written CUDA
-  kernel for a CUDA tensor, the plain blockwise version for a CPU one. (The
-  JAX layers call their pure-jnp oracle directly; this is the one
-  deliberate difference.)
+  kernels for a CUDA tensor, the plain versions for a CPU one. (The JAX
+  layers call their pure-jnp oracles directly; this is the one deliberate
+  difference.)
 
 Every ``init_*`` takes an explicit ``torch.Generator`` (on ``device``) and a
 ``lead`` shape prepended to every leaf, so a whole period stack is drawn in
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import decode_attention as decode_attention_ref  # noqa: F401
 from repro_torch.kernels.ref import flash_attention as flash_attention_ref  # noqa: F401
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -147,12 +149,18 @@ def attention_forward(
     positions: torch.Tensor,
     *,
     causal: bool = True,
-) -> torch.Tensor:
-    """Full-sequence attention. positions: (B, S)."""
+    return_kv: bool = False,
+):
+    """Full-sequence attention (forward / prefill). positions: (B, S).
+    With ``return_kv`` also returns the roped (k, v), (B, S, Hkv, Dh) in the
+    compute dtype, for the prefill's cache."""
     q, k, v = _project_qkv(cfg, p, x, x)
     q, k = _rope_qk(cfg, q, k, positions)
     out = ops.flash_attention(q, k, v, causal=causal)
-    return _out_proj(cfg, p, out)
+    y = _out_proj(cfg, p, out)
+    if return_kv:
+        return y, (k, v)
+    return y
 
 
 def _out_proj(cfg: ModelConfig, p: dict, out: torch.Tensor) -> torch.Tensor:
@@ -160,6 +168,34 @@ def _out_proj(cfg: ModelConfig, p: dict, out: torch.Tensor) -> torch.Tensor:
     ct = cdtype(cfg)
     flat = out.reshape(B, S, cfg.num_heads * cfg.head_dim).to(ct)
     return flat @ p["wo"].to(ct)
+
+
+def attention_decode(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,          # (B, 1, D)
+    positions: torch.Tensor,  # (B,) int32, absolute position of the new token
+    k_cache: torch.Tensor,    # (B, L, Hkv, Dh)
+    v_cache: torch.Tensor,
+):
+    """One-token decode: rope at ``positions``, write the new token's k/v
+    into the cache at ``positions``, attend against the cache through
+    ``ops.decode_attention`` with ``lengths = positions + 1``.
+
+    The JAX version scatters into a new cache (``.at[bidx, pos].set``); here
+    the write goes into ``k_cache``/``v_cache`` IN PLACE (advanced-index
+    assignment) and the same tensors are returned. ``positions`` stays on
+    the device: nothing here waits for the card."""
+    B = x.shape[0]
+    q, k, v = _project_qkv(cfg, p, x, x)
+    q, k = _rope_qk(cfg, q, k, positions[:, None])
+    bidx = torch.arange(B, device=x.device)
+    pos = positions.long()
+    k_cache[bidx, pos] = k[:, 0].to(k_cache.dtype)
+    v_cache[bidx, pos] = v[:, 0].to(v_cache.dtype)
+    lengths = (positions + 1).to(torch.int32)
+    out = ops.decode_attention(q, k_cache, v_cache, lengths)
+    return _out_proj(cfg, p, out), k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------

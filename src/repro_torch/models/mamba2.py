@@ -1,0 +1,171 @@
+"""Mamba2 (SSD — state-space duality) blocks, as ``repro.models.mamba2``.
+
+Forward and prefill run the chunked SSD scan through ``kernels.ops``: the
+hand-written CUDA kernel for a CUDA tensor, the plain chunked version
+(``ssd_chunked_ref``) for a CPU one. Decode is the O(1) recurrent step
+``ssd_step_ref``, plain PyTorch (the JAX package has no kernel for it).
+
+Shapes (ngroups = 1, i.e. B/C shared across heads, MQA-style):
+  x:  (B, S, H, P)      dt: (B, S, H)      A: (H,)
+  Bm: (B, S, N)         Cm: (B, S, N)      state: (B, H, P, N)
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import ssd_scan as ssd_chunked_ref  # noqa: F401
+from repro_torch.models.layers import _uniform, cdtype, dense_init, pdtype, rms_norm
+
+
+def ssd_step_ref(
+    state: torch.Tensor,  # (B, H, P, N)
+    x: torch.Tensor,      # (B, H, P)
+    dt: torch.Tensor,     # (B, H)
+    A: torch.Tensor,      # (H,)
+    Bm: torch.Tensor,     # (B, N)
+    Cm: torch.Tensor,     # (B, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Recurrent decode step. Returns (y (B,H,P) in x's dtype, new_state fp32)."""
+    f32 = torch.float32
+    dtf = dt.to(f32)
+    decay = torch.exp(dtf * A.to(f32))  # (B,H)
+    upd = torch.einsum("bhp,bn->bhpn", x.to(f32) * dtf[..., None], Bm.to(f32))
+    new_state = state.to(f32) * decay[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", new_state, Cm.to(f32))
+    return y.to(x.dtype), new_state
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block (in_proj -> conv -> SSD -> gated norm -> out_proj)
+# ---------------------------------------------------------------------------
+
+
+def _linspace(start: float, stop: float, num: int, device) -> torch.Tensor:
+    """fp32 ``jnp.linspace(start, stop, num)``, bit for bit: JAX computes
+    ``start * (1 - t) + stop * t`` with ``t = iota / (num - 1)`` and appends
+    ``stop`` (``torch.linspace`` rounds differently)."""
+    if num == 1:
+        return torch.full((1,), start, dtype=torch.float32, device=device)
+    t = torch.arange(num - 1, dtype=torch.float32, device=device) / (num - 1)
+    out = start * (1 - t) + stop * t
+    return torch.cat([out, torch.full((1,), stop, dtype=torch.float32, device=device)])
+
+
+def init_mamba(cfg: ModelConfig, gen, device, lead=()) -> dict:
+    """The JAX init: uniform ±1/√d_in projections, uniform ±1/√W conv
+    weights, zero conv bias, unit norm, and the constants A_log =
+    log(linspace(1, 16, H)), D = 1, dt_bias = log(expm1(0.01)) (fp32). The
+    linspace is JAX's bit for bit; torch's fp32 log may differ from XLA's in
+    the last bit."""
+    dt = pdtype(cfg)
+    d, di, ns, nh = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads
+    proj_out = 2 * di + 2 * ns + nh  # z, x, B, C, dt
+    f32 = torch.float32
+
+    def const(v: torch.Tensor) -> torch.Tensor:
+        return v.expand(*lead, nh).clone()
+
+    return {
+        "in_proj": dense_init(gen, d, proj_out, dt, device, lead),
+        "conv_w": _conv_init(gen, cfg.ssm_conv, cfg.ssm_conv_dim, dt, device, lead),
+        "conv_b": torch.zeros((*lead, cfg.ssm_conv_dim), dtype=dt, device=device),
+        "A_log": const(torch.log(_linspace(1.0, 16.0, nh, device))),
+        "D": torch.ones((*lead, nh), dtype=f32, device=device),
+        "dt_bias": const(torch.log(torch.expm1(torch.full((nh,), 0.01, dtype=f32,
+                                                          device=device)))),
+        "norm": torch.ones((*lead, di), dtype=dt, device=device),
+        "out_proj": dense_init(gen, di, d, dt, device, lead),
+    }
+
+
+def _conv_init(gen, width: int, dim: int, dtype, device, lead=()) -> torch.Tensor:
+    return _uniform(gen, (*lead, width, dim), 1.0 / math.sqrt(width), dtype, device)
+
+
+def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
+    di, ns = cfg.ssm_d_inner, cfg.ssm_state
+    z, xc, dt_raw = torch.split(zxbcdt, [di, di + 2 * ns, cfg.ssm_nheads], dim=-1)
+    return z, xc, dt_raw  # xc = [x, B, C] (conv'd together)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d. x: (B, S, C), w: (W, C). The same unrolled
+    fp32 accumulation as the JAX version."""
+    W = w.shape[0]
+    S = x.shape[1]
+    xp = F.pad(x, (0, 0, W - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(W):  # W = 4: tiny static unroll
+        out = out + xp[:, i:i + S].float() * w[i].float()
+    return F.silu(out + b.float()).to(x.dtype)
+
+
+def mamba_forward(
+    cfg: ModelConfig,
+    p: dict,
+    xin: torch.Tensor,  # (B, S, D)
+    *,
+    initial_state: Optional[torch.Tensor] = None,
+    return_state: bool = False,
+):
+    """Full-sequence Mamba2 block (forward / prefill). With ``return_state``
+    also returns the final SSM state (B, H, P, N) fp32 and the pre-conv
+    tail (B, W-1, conv_dim), the decode conv state."""
+    B, S, _ = xin.shape
+    di, ns, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
+    ct = cdtype(cfg)
+    zxbcdt = xin.to(ct) @ p["in_proj"].to(ct)
+    z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
+    conv_tail = xbc[:, S - (cfg.ssm_conv - 1):]  # pre-conv tail -> decode conv state
+    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    x, Bm, Cm = torch.split(xbc, [di, ns, ns], dim=-1)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B,S,H)
+    A = -torch.exp(p["A_log"])  # (H,) negative
+    xh = x.reshape(B, S, nh, hp)
+    y, final_state = ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk,
+                                  initial_state=initial_state)
+    y = y + xh * p["D"][:, None].float()
+    y = y.reshape(B, S, di)
+    # gated RMSNorm (mamba2): norm(y * silu(z))
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg.rmsnorm_eps)
+    out = y.to(ct) @ p["out_proj"].to(ct)
+    if return_state:
+        return out, final_state, conv_tail
+    return out
+
+
+def mamba_decode(
+    cfg: ModelConfig,
+    p: dict,
+    xin: torch.Tensor,         # (B, 1, D)
+    ssm_state: torch.Tensor,   # (B, H, P, N)
+    conv_state: torch.Tensor,  # (B, W-1, conv_dim)
+):
+    """One-token recurrent step; returns (out (B,1,D), ssm_state, conv_state),
+    new tensors (the caller writes them into its cache)."""
+    B = xin.shape[0]
+    di, ns, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
+    ct = cdtype(cfg)
+    zxbcdt = xin[:, 0].to(ct) @ p["in_proj"].to(ct)
+    z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
+    # roll conv state, apply conv at last position
+    full = torch.cat([conv_state, xbc[:, None, :]], dim=1)  # (B, W, C)
+    new_conv_state = full[:, 1:]
+    conv_out = torch.einsum("bwc,wc->bc", full.float(), p["conv_w"].float())
+    xbc = F.silu(conv_out + p["conv_b"].float()).to(xbc.dtype)
+    x, Bm, Cm = torch.split(xbc, [di, ns, ns], dim=-1)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B,H)
+    A = -torch.exp(p["A_log"])
+    xh = x.reshape(B, nh, hp)
+    y, new_ssm = ssd_step_ref(ssm_state, xh, dt, A, Bm, Cm)
+    y = y + xh * p["D"][:, None].float()
+    y = y.reshape(B, di)
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg.rmsnorm_eps)
+    out = y.to(ct) @ p["out_proj"].to(ct)
+    return out[:, None, :], new_ssm, new_conv_state

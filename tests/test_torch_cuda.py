@@ -10,8 +10,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 # tests/test_kernels.py's sweep plus the serving shapes of qwen2.5-3b:
 # B, Sq, Sk, Hq, Hkv, Dh, causal
@@ -61,3 +63,125 @@ def test_flash_kernel_refuses_non_contiguous(cuda):
     k = torch.zeros((1, 16, 2, 16), device=cuda)
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, k)
+
+
+# tests/test_kernels.py's decode sweep plus the serving shapes: B, L, Hq, Hkv, Dh
+DECODE_SHAPES = [
+    (2, 256, 4, 2, 64),
+    (3, 300, 8, 8, 32),
+    (1, 1024, 16, 2, 128),
+    (4, 128, 8, 1, 64),
+    (2, 28, 4, 2, 16),       # reduced serving shape (qwen2.5-3b, qwen3-8b)
+    (4, 1056, 16, 2, 128),   # full-width qwen2.5-3b decode
+    (2, 70, 24, 8, 128),     # G=3 (phi4-mini)
+]
+
+
+def _decode_inputs(device, dtype, B, L, Hq, Hkv, Dh, seed=0):
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(device, dt)
+               for s in ((B, 1, Hq, Dh), (B, L, Hkv, Dh), (B, L, Hkv, Dh)))
+    lengths = torch.from_numpy(rng.integers(1, L + 1, (B,)).astype(np.int32)).to(device)
+    return q, k, v, lengths
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,Hq,Hkv,Dh", DECODE_SHAPES)
+def test_decode_kernel_matches_plain(cuda, dtype, B, L, Hq, Hkv, Dh):
+    q, k, v, lengths = _decode_inputs(cuda, dtype, B, L, Hq, Hkv, Dh)
+    before = dec.launches
+    out = ops.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert dec.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    plain = ops.decode_attention(q, k, v, lengths, use_kernel=False)
+    tol = 2e-2 if dtype == "bfloat16" else 3e-5  # tests/test_kernels.py
+    np.testing.assert_allclose(out.float().cpu().numpy(), plain.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.requires_cuda
+def test_decode_kernel_reads_a_period_view_and_gives_zero_at_length_zero(cuda):
+    """The [period] view of a stacked cache is read in place; length 0
+    gives 0 (the TPU kernel's answer), other rows are unaffected."""
+    q, k, v, lengths = _decode_inputs(cuda, "float32", 3, 40, 4, 2, 32)
+    stacked_k = torch.zeros((2, *k.shape), device=cuda)
+    stacked_v = torch.zeros((2, *v.shape), device=cuda)
+    stacked_k[1], stacked_v[1] = k, v
+    lengths[1] = 0
+    out = ops.decode_attention(q, stacked_k[1], stacked_v[1], lengths)
+    plain = ops.decode_attention(q, k, v, lengths, use_kernel=False)
+    assert float(out[1].abs().max()) == 0.0
+    np.testing.assert_allclose(out[[0, 2]].cpu().numpy(), plain[[0, 2]].cpu().numpy(),
+                               atol=3e-5, rtol=3e-5)
+
+
+# tests/test_kernels.py's SSD sweep plus the serving shapes: B, S, H, P, N, chunk
+SSD_SHAPES = [
+    (2, 64, 4, 16, 16, 16),
+    (1, 128, 2, 32, 64, 32),
+    (2, 100, 3, 16, 32, 32),      # padding path
+    (1, 256, 8, 64, 128, 64),
+    (1, 16, 8, 16, 16, 16),       # reduced mamba2-780m serving shape
+    (4, 1024, 48, 64, 128, 128),  # full-width mamba2-780m prefill
+    (2, 10, 2, 16, 16, 16),       # S shorter than the chunk
+]
+
+
+def _ssd_inputs(device, dtype, B, S, H, P, N, seed=0):
+    rng = np.random.default_rng(seed)
+    dt_ = getattr(torch, dtype)
+    t = lambda a, d=dt_: torch.from_numpy(a.astype(np.float32)).to(device, d)  # noqa: E731
+    x = t(rng.standard_normal((B, S, H, P)))
+    dt = t(np.log1p(np.exp(rng.standard_normal((B, S, H)))), torch.float32)
+    A = t(-np.exp(rng.standard_normal(H) * 0.3), torch.float32)
+    Bm, Cm = t(rng.standard_normal((B, S, N))), t(rng.standard_normal((B, S, N)))
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
+def test_ssd_kernel_matches_plain(cuda, dtype, B, S, H, P, N, chunk):
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, dtype, B, S, H, P, N)
+    before = ssd.launches
+    y, fs = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    assert y.dtype == x.dtype and y.shape == x.shape and fs.dtype == torch.float32
+    yp, fsp = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, use_kernel=False)
+    tol = 3e-2 if dtype == "bfloat16" else 1e-3  # tests/test_kernels.py
+    np.testing.assert_allclose(y.float().cpu().numpy(), yp.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(fs.cpu().numpy(), fsp.cpu().numpy(), atol=tol, rtol=tol)
+
+
+@pytest.mark.requires_cuda
+def test_ssd_kernel_initial_state_and_strided_views(cuda):
+    """initial_state continues a scan, and x/B/C may be slices of one fused
+    tensor, as in the Mamba2 block."""
+    B, S, H, P, N = 2, 48, 4, 16, 32
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, "float32", B, S, H, P, N)
+    fused = torch.cat([x.reshape(B, S, H * P), Bm, Cm], dim=-1)
+    xv, Bv, Cv = torch.split(fused, [H * P, N, N], dim=-1)
+    s0 = torch.randn((B, H, P, N), device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    y, fs = ops.ssd_scan(xv.reshape(B, S, H, P), dt, A, Bv, Cv, chunk=16, initial_state=s0)
+    yp, fsp = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=16, initial_state=s0, use_kernel=False)
+    np.testing.assert_allclose(y.cpu().numpy(), yp.cpu().numpy(), atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(fs.cpu().numpy(), fsp.cpu().numpy(), atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.requires_cuda
+def test_new_kernels_refuse_what_they_do_not_take(cuda):
+    q, k, v, lengths = _decode_inputs(cuda, "float32", 2, 32, 4, 2, 16)
+    with pytest.raises(ValueError, match="int32"):
+        ops.decode_attention(q, k, v, lengths.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, lengths)
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, "float32", 1, 32, 2, 16, 16)
+    with pytest.raises(ValueError, match="float32"):
+        ops.ssd_scan(x, dt.bfloat16(), A, Bm, Cm)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.ssd_scan(*_ssd_inputs(cuda, "float32", 1, 512, 1, 128, 256), chunk=512)

@@ -30,7 +30,8 @@ def _imported_modules(path: Path):
 def test_sources_exist():
     assert (PORT / "core" / "runtime.py").exists()
     assert (ROOT / "chip_smoke.py").exists()
-    assert (PORT / "kernels" / "csrc" / "flash_attention.cu").exists()
+    for name in ("flash_attention", "decode_attention", "ssd_scan"):
+        assert (PORT / "kernels" / "csrc" / f"{name}.cu").exists()
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -43,7 +44,8 @@ def test_no_jax_or_reference_import(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch.core, repro_torch.core.functions, "
-            "repro_torch.kernels.ops, repro_torch.models.convert; "
+            "repro_torch.kernels.ops, repro_torch.models.convert, "
+            "repro_torch.models.mamba2, repro_torch.serving; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -53,8 +55,10 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_default_device_is_cuda_and_never_falls_back():
+    from repro_torch.configs import ARCHS
     from repro_torch.core import SageRuntime
     from repro_torch.data.database import Database
+    from repro_torch.models import init_cache
 
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
@@ -62,6 +66,8 @@ def test_default_device_is_cuda_and_never_falls_back():
         SageRuntime()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Database()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_cache(ARCHS["mamba2-780m"].reduced(), 1, 8)
     rt = SageRuntime(device="cpu")
     assert rt.db.device.type == "cpu"
     rt.shutdown()

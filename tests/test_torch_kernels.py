@@ -1,19 +1,27 @@
-"""Flash attention in the port: the plain PyTorch version against the JAX
-package's Pallas kernel (interpret mode) and its oracle, the ``ops``
-dispatch on the CPU, and the kernel wrapper's input checks. Inputs are
-drawn once with numpy and handed to both packages. The CUDA kernel's own
-tests are in test_torch_cuda.py, which imports no JAX so that it runs on a
-machine with the card."""
+"""The port's kernels on the CPU: the plain PyTorch versions of flash
+attention, decode attention and the SSD scan against the JAX package's
+Pallas kernels (interpret mode) and their oracles, the ``ops`` dispatch on
+the CPU, and the kernel wrappers' input checks. Inputs are drawn once with
+numpy and handed to both packages. The CUDA kernels' own tests are in
+test_torch_cuda.py, which imports no JAX so that it runs on a machine with
+the card."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.kernels.decode_attention import decode_attention as jax_decode  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from repro.kernels.ssd_scan import ssd_scan as jax_ssd  # noqa: E402
+from repro.models.layers import decode_attention_ref as jax_decode_ref  # noqa: E402
 from repro.models.layers import flash_attention_ref as jax_flash_ref  # noqa: E402
+from repro.models.mamba2 import ssd_chunked_ref as jax_ssd_ref  # noqa: E402
+from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.models.mamba2 import ssd_chunked_ref, ssd_step_ref  # noqa: E402
 
 # tests/test_kernels.py's sweep: B, Sq, Sk, Hq, Hkv, Dh, causal, bq, bk
 SHAPES = [
@@ -105,3 +113,158 @@ def test_kernel_wrapper_refuses_what_it_does_not_take(case, match):
     with pytest.raises(ValueError, match=match):
         fa.flash_attention(q, k, v)
     assert fa.launches == before
+
+
+# tests/test_kernels.py's decode sweep: B, L, Hq, Hkv, Dh, bk
+DECODE_SHAPES = [
+    (2, 256, 4, 2, 64, 64),
+    (3, 300, 8, 8, 32, 128),   # padding + MHA
+    (1, 1024, 16, 2, 128, 256),
+    (4, 128, 8, 1, 64, 128),   # MQA
+]
+
+
+def _decode_arrays(B, L, Hq, Hkv, Dh, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal(s, dtype=np.float32)
+               for s in ((B, 1, Hq, Dh), (B, L, Hkv, Dh), (B, L, Hkv, Dh)))
+    return q, k, v, rng.integers(1, L + 1, (B,)).astype(np.int32)  # lengths >= 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,L,Hq,Hkv,Dh,bk", DECODE_SHAPES)
+def test_decode_plain_matches_jax_kernel_and_oracle(dtype, B, L, Hq, Hkv, Dh, bk):
+    q, k, v, lens = _decode_arrays(B, L, Hq, Hkv, Dh)
+    jq, jk, jv = [jnp.asarray(a).astype(dtype) for a in (q, k, v)]
+    kernel = jax_decode(jq, jk, jv, jnp.asarray(lens), block_k=bk, interpret=True)
+    oracle = jax_decode_ref(jq, jk, jv, jnp.asarray(lens), block_k=bk)
+    tq, tk, tv = _torch((q, k, v), dtype)
+    out = ref.decode_attention(tq, tk, tv, torch.from_numpy(lens), block_k=bk)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    tol = _tol(dtype)
+    np.testing.assert_allclose(_f32(out), _f32(kernel), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_f32(out), _f32(oracle), atol=tol, rtol=tol)
+
+
+# tests/test_kernels.py's SSD sweep: B, S, H, P, N, chunk
+SSD_SHAPES = [
+    (2, 64, 4, 16, 16, 16),
+    (1, 128, 2, 32, 64, 32),
+    (2, 100, 3, 16, 32, 32),   # padding path
+    (1, 256, 8, 64, 128, 64),  # production-ish dims
+]
+
+
+def _ssd_arrays(B, S, H, P, N, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P), dtype=np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32)  # softplus
+    A = (-np.exp(rng.standard_normal(H) * 0.3)).astype(np.float32)
+    Bm = rng.standard_normal((B, S, N), dtype=np.float32)
+    Cm = rng.standard_normal((B, S, N), dtype=np.float32)
+    return x, dt, A, Bm, Cm
+
+
+def _ssd_both(arrays, dtype):
+    """(JAX arrays, torch tensors): x, B, C in ``dtype``, dt and A fp32."""
+    x, dt, A, Bm, Cm = arrays
+    j = [jnp.asarray(x).astype(dtype), jnp.asarray(dt), jnp.asarray(A),
+         jnp.asarray(Bm).astype(dtype), jnp.asarray(Cm).astype(dtype)]
+    tx, tB, tC = _torch((x, Bm, Cm), dtype)
+    return j, [tx, torch.from_numpy(dt), torch.from_numpy(A), tB, tC]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
+def test_ssd_plain_matches_jax_kernel_and_oracle(dtype, B, S, H, P, N, chunk):
+    j, t = _ssd_both(_ssd_arrays(B, S, H, P, N), dtype)
+    yk, fsk = jax_ssd(*j, chunk=chunk, interpret=True)
+    yo, fso = jax_ssd_ref(*j, chunk=chunk)
+    y, fs = ref.ssd_scan(*t, chunk=chunk)
+    assert y.dtype == t[0].dtype and y.shape == t[0].shape and fs.dtype == torch.float32
+    tol = 3e-2 if dtype == "bfloat16" else 1e-3  # tests/test_kernels.py
+    for want_y, want_fs in ((yk, fsk), (yo, fso)):
+        np.testing.assert_allclose(_f32(y), _f32(want_y), atol=tol, rtol=tol)
+        np.testing.assert_allclose(_f32(fs), _f32(want_fs), atol=tol, rtol=tol)
+
+
+def test_ssd_chunk_invariance():
+    """Chunk size must not change the result (duality correctness)."""
+    _, t = _ssd_both(_ssd_arrays(1, 96, 2, 16, 32), "float32")
+    outs = [ssd_chunked_ref(*t, chunk=c)[0] for c in (16, 32, 96)]
+    for o in outs[1:]:
+        np.testing.assert_allclose(outs[0].numpy(), o.numpy(), atol=2e-4)
+
+
+def test_ssd_step_equals_scan():
+    """Recurrent decode step == one-token chunked scan continuation."""
+    B, S = 2, 32
+    _, (x, dt, A, Bm, Cm) = _ssd_both(_ssd_arrays(B, S + 1, 2, 8, 16), "float32")
+    y_full, _ = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=16)
+    _, state = ssd_chunked_ref(x[:, :S], dt[:, :S], A, Bm[:, :S], Cm[:, :S], chunk=16)
+    y_step, _ = ssd_step_ref(state, x[:, S], dt[:, S], A, Bm[:, S], Cm[:, S])
+    np.testing.assert_allclose(y_step.numpy(), y_full[:, S].numpy(), atol=2e-4, rtol=2e-4)
+
+
+def test_ssd_initial_state_continues_like_jax():
+    """A scan started from ``initial_state`` matches the JAX oracle's, and
+    equals the second half of one scan over both halves."""
+    arrays = _ssd_arrays(2, 80, 3, 16, 32)
+    j, t = _ssd_both(arrays, "float32")
+    s0 = np.random.default_rng(1).standard_normal((2, 3, 16, 32), dtype=np.float32)
+    y, fs = ref.ssd_scan(*t, chunk=32, initial_state=torch.from_numpy(s0))
+    yj, fsj = jax_ssd_ref(*j, chunk=32, initial_state=jnp.asarray(s0))
+    np.testing.assert_allclose(y.numpy(), _f32(yj), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(fs.numpy(), _f32(fsj), atol=1e-4, rtol=1e-4)
+    y_all, fs_all = ref.ssd_scan(*t, chunk=16)
+    _, mid = ref.ssd_scan(*(a[:, :48] if a.dim() > 1 else a for a in t), chunk=16)
+    y2, fs2 = ref.ssd_scan(*(a[:, 48:] if a.dim() > 1 else a for a in t), chunk=16,
+                           initial_state=mid)
+    np.testing.assert_allclose(y2.numpy(), y_all[:, 48:].numpy(), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(fs2.numpy(), fs_all.numpy(), atol=2e-4, rtol=2e-4)
+
+
+def test_ops_new_kernels_on_cpu_take_plain_versions_and_launch_nothing():
+    q, k, v, lens = _decode_arrays(2, 40, 4, 2, 16)
+    tq, tk, tv = _torch((q, k, v), "float32")
+    tl = torch.from_numpy(lens)
+    _, t = _ssd_both(_ssd_arrays(1, 40, 2, 16, 16), "float32")
+    before = (dec.launches, ssd.launches)
+    np.testing.assert_array_equal(ops.decode_attention(tq, tk, tv, tl).numpy(),
+                                  ref.decode_attention(tq, tk, tv, tl).numpy())
+    y, fs = ops.ssd_scan(*t, chunk=16)
+    yr, fsr = ref.ssd_scan(*t, chunk=16)
+    np.testing.assert_array_equal(y.numpy(), yr.numpy())
+    np.testing.assert_array_equal(fs.numpy(), fsr.numpy())
+    assert (dec.launches, ssd.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.decode_attention(tq, tk, tv, tl, use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ssd_scan(*t, use_kernel=True)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("decode_cpu", "CUDA"),
+    ("decode_lengths", "int32"),
+    ("decode_group", "query heads"),
+    ("ssd_cpu", "CUDA"),
+    ("ssd_dt_dtype", "float32"),
+    ("ssd_state_shape", "initial_state"),
+])
+def test_new_kernel_wrappers_refuse_what_they_do_not_take(case, match):
+    """The wrappers raise before any build or launch; never fall back."""
+    before = (dec.launches, ssd.launches)
+    with pytest.raises(ValueError, match=match):
+        if case.startswith("decode"):
+            H = 34 if case == "decode_group" else 4  # G=17 > 16
+            q, k, v, lens = _decode_arrays(2, 32, H, 2, 16)
+            tq, tk, tv = _torch((q, k, v), "float32")
+            tl = torch.from_numpy(lens)
+            dec.decode_attention(tq, tk, tv, tl.long() if case == "decode_lengths" else tl)
+        else:
+            _, (x, dt, A, Bm, Cm) = _ssd_both(_ssd_arrays(1, 32, 2, 16, 16), "float32")
+            if case == "ssd_dt_dtype":
+                dt = dt.double()
+            s0 = torch.zeros((1, 2, 16, 8)) if case == "ssd_state_shape" else None
+            ssd.ssd_scan(x, dt, A, Bm, Cm, initial_state=s0)
+    assert (dec.launches, ssd.launches) == before

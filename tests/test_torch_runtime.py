@@ -41,8 +41,8 @@ def _teardown(rt):
     return usage
 
 
-def _cold_warm_warm(rt, make_fn, make_req, weights=None):
-    fn = make_fn(rt.db, "f", arch="qwen2.5-3b", seed=3)
+def _cold_warm_warm(rt, make_fn, make_req, arch, weights=None):
+    fn = make_fn(rt.db, "f", arch=arch, seed=3)
     if weights is not None:
         rt.db.put("f/weights", weights, size=rt.db.size_of("f/weights"))
     rt.register_function(fn)
@@ -61,13 +61,14 @@ def _cold_warm_warm(rt, make_fn, make_req, weights=None):
     )
 
 
-def test_cold_warm_warm_matches_reference_runtime():
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-780m"])
+def test_cold_warm_warm_matches_reference_runtime(arch):
     ref_rt = RefRuntime("sage", time_scale=0.02, exit_ttl=5.0)
     ref_rt.sage_init()
-    want = _cold_warm_warm(ref_rt, ref_make_fn, ref_make_request)
+    want = _cold_warm_warm(ref_rt, ref_make_fn, ref_make_request, arch)
     jax_weights = ref_rt.db.fetch("f/weights")
     weights = params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_weights), "cpu")
-    got = _cold_warm_warm(_runtime(exit_ttl=5.0), make_model_function, make_request,
+    got = _cold_warm_warm(_runtime(exit_ttl=5.0), make_model_function, make_request, arch,
                           weights=weights)
     assert got["warm"] == want["warm"] == [None, 1, 1]
     assert got["stage_keys"] == want["stage_keys"]

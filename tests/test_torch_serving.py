@@ -1,0 +1,111 @@
+"""The port's decode path: ``init_cache`` / ``prefill`` / ``decode_step``
+and the serving step factories, against the port's own full forward (the
+analog of tests/test_models.py::test_decode_matches_forward) and against
+the JAX package's ``prefill`` / ``decode_step`` on the same weights
+(carried over through numpy) and tokens."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import ARCHS as REF_ARCHS  # noqa: E402
+from repro.models import decode_step as jax_decode_step  # noqa: E402
+from repro.models import init_cache as jax_init_cache  # noqa: E402
+from repro.models import init_params as jax_init_params  # noqa: E402
+from repro.models import prefill as jax_prefill  # noqa: E402
+from repro.serving import cache_shapes as jax_cache_shapes  # noqa: E402
+from repro.serving import greedy_sample as jax_greedy_sample  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.kernels import decode_attention as dec  # noqa: E402
+from repro_torch.models import decode_step, forward, init_cache, init_params, prefill  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    cache_shapes, greedy_sample, make_decode_step, make_prefill_step,
+)
+
+ARCHS_DECODE = ["qwen2.5-3b", "qwen3-8b", "mamba2-780m"]
+B, S, SP = 2, 24, 16  # tests/test_models.py: batch, full length, prompt length
+
+
+def _tokens(cfg, seed=2):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+
+
+@pytest.mark.parametrize("arch", ARCHS_DECODE)
+def test_decode_matches_forward(arch):
+    """prefill + token-by-token decode reproduces the full-sequence logits
+    (tests/test_models.py's property and tolerances, 2e-3 / 1e-3)."""
+    cfg = ARCHS[arch].reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    toks = torch.from_numpy(_tokens(cfg))
+    full, _ = forward(cfg, params, {"tokens": toks})
+    cache = init_cache(cfg, B, S + 4, device="cpu")
+    lg, cache2, _ = prefill(cfg, params, {"tokens": toks[:, :SP]}, cache)
+    assert cache2 is cache  # filled in place
+    np.testing.assert_allclose(lg.numpy(), full[:, SP - 1].numpy(), atol=2e-3, rtol=1e-3)
+    before = dec.launches
+    for t in range(SP, S):
+        lg, cache = decode_step(cfg, params, toks[:, t:t + 1],
+                                torch.full((B,), t, dtype=torch.int32), cache)
+        np.testing.assert_allclose(lg.numpy(), full[:, t].numpy(), atol=2e-3, rtol=1e-3)
+    assert dec.launches == before  # CPU tensors never reach the CUDA kernel
+
+
+@pytest.mark.parametrize("arch", ARCHS_DECODE)
+def test_serving_steps_match_jax(arch):
+    """The port's prefill and decode steps give the JAX package's logits on
+    the same weights and tokens, with greedy sampling fed back (the sampled
+    tokens agree too)."""
+    ref_cfg, cfg = REF_ARCHS[arch].reduced(), ARCHS[arch].reduced()
+    jparams = jax_init_params(ref_cfg, jax.random.PRNGKey(1))
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    prompt = _tokens(cfg)[:, :SP]
+    jlg, jcache, _ = jax_prefill(ref_cfg, jparams, {"tokens": jnp.asarray(prompt)},
+                                 jax_init_cache(ref_cfg, B, S))
+    prefill_step, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    lg, cache = prefill_step(params, {"tokens": torch.from_numpy(prompt)},
+                             init_cache(cfg, B, S, device="cpu"))
+    np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), atol=2e-3, rtol=1e-3)
+    for t in range(SP, S):
+        nxt, jnxt = greedy_sample(lg), jax_greedy_sample(jlg)
+        assert nxt.dtype == torch.int32
+        np.testing.assert_array_equal(nxt.numpy(), np.asarray(jnxt))
+        lg, cache = decode(params, nxt[:, None], torch.full((B,), t, dtype=torch.int32),
+                           cache)
+        jlg, jcache = jax_decode_step(ref_cfg, jparams, jnxt[:, None],
+                                      jnp.full((B,), t, jnp.int32), jcache)
+        np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), atol=2e-3, rtol=1e-3)
+    for key, entry in cache.items():  # the caches agree as well
+        for name, leaf in entry.items():
+            np.testing.assert_allclose(leaf.float().numpy(),
+                                       np.asarray(jcache[key][name], np.float32),
+                                       atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ARCHS_DECODE)
+@pytest.mark.parametrize("reduced", [True, False])
+def test_cache_shapes_match_jax(arch, reduced):
+    """``cache_shapes`` allocates nothing (meta tensors) and has the JAX
+    package's keys, shapes and dtypes, at the full-width serving size too."""
+    cfg, ref_cfg = ARCHS[arch], REF_ARCHS[arch]
+    if reduced:
+        cfg, ref_cfg = cfg.reduced(), ref_cfg.reduced()
+    batch, max_len = (2, 28) if reduced else (4, 1056)
+    got = cache_shapes(cfg, batch, max_len)
+    want = jax_cache_shapes(ref_cfg, batch, max_len)
+    assert set(got) == set(want)
+    for key, entry in got.items():
+        assert set(entry) == set(want[key])
+        for name, leaf in entry.items():
+            assert leaf.is_meta
+            assert tuple(leaf.shape) == tuple(want[key][name].shape)
+            assert str(leaf.dtype).replace("torch.", "") == str(want[key][name].dtype)
+
+
+def test_greedy_sample_is_int32_argmax():
+    logits = np.random.default_rng(0).standard_normal((3, 50), dtype=np.float32)
+    got = greedy_sample(torch.from_numpy(logits))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_greedy_sample(jnp.asarray(logits))))
