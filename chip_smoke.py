@@ -9,11 +9,13 @@ Phases, one JSON line each:
 2. build         builds (or loads) the hand-written kernels from
                  src/repro_torch/kernels/csrc with nvcc, all sources at once;
 3. kernels       every kernel against its plain PyTorch version on the card
-                 at the reference sweep and at the serving shapes (TF32
-                 off), then timed at the full-width serving shape beside its
-                 plain version, one PyTorch library call where one computes
-                 the same function (the yardstick only) and its bound:
-                 flash attention (K1), decode attention (K2), SSD scan (K3);
+                 at the reference sweep, the split-K edges (K2) and the
+                 serving shapes (TF32 off), then its device time at the
+                 full-width serving shape beside its plain version, one
+                 PyTorch library call where one computes the same function
+                 (the yardstick only) and its bound: flash attention (K1),
+                 decode attention (K2, with its number of splits and the
+                 host's cost of one call), SSD scan (K3);
 4. reduced       SageRuntime serves the reduced qwen2.5-3b cold -> warm -> warm;
 5. full          SageRuntime serves the full-width qwen2.5-3b (36 layers,
                  d_model 2048, bf16, random weights from a seed), batch
@@ -66,6 +68,9 @@ from repro_torch.models import forward, init_cache, init_params  # noqa: E402
 from repro_torch.serving import greedy_sample, make_decode_step, make_prefill_step  # noqa: E402
 
 KERNELS = {fa.NAME: fa, dec.NAME: dec, ssd.NAME: ssd}
+# the CUDA functions of those kernels, as the profiler names them
+PORT_KERNEL_NAMES = ("flash_fwd_kernel", "flash_fwd_bf16_kernel", "decode_split_kernel",
+                     "decode_combine_kernel", "ssd_kernel")
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound's rates
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
@@ -78,6 +83,16 @@ REF_SHAPES = [  # tests/test_kernels.py sweep: B, Sq, Sk, Hq, Hkv, Dh, causal
     (1, 128, 128, 4, 1, 128, False),
     (1, 64, 192, 2, 2, 64, False),
     (1, 512, 512, 8, 8, 64, True),
+    # ragged 64-key tiles and the GQA packing of the tensor-core path:
+    # G = 1, 3, 8, 16, causal Sq = Sk = 200 and non-causal Sk = 333
+    (2, 200, 200, 2, 2, 64, True),
+    (1, 200, 200, 6, 2, 128, True),
+    (2, 200, 200, 16, 2, 128, True),
+    (1, 200, 200, 16, 1, 32, True),
+    (1, 200, 333, 2, 2, 64, False),
+    (1, 200, 333, 6, 2, 128, False),
+    (2, 200, 333, 16, 2, 128, False),
+    (1, 200, 333, 16, 1, 16, False),
 ]
 REDUCED_SHAPE = (1, 16, 16, 4, 2, 16, True)        # qwen2.5-3b reduced, fp32
 FULL_SHAPE = (4, 1024, 1024, 16, 2, 128, True)     # qwen2.5-3b full, bf16
@@ -88,6 +103,13 @@ DECODE_REF_SHAPES = [  # tests/test_kernels.py decode sweep: B, L, Hq, Hkv, Dh
     (3, 300, 8, 8, 32),
     (1, 1024, 16, 2, 128),
     (4, 128, 8, 1, 64),
+]
+# split-K edges: lengths 1, 64k, 64k + 1 and L (B, L, Hq, Hkv, Dh, lengths); on
+# 132 SMs the splits are 5 of one tile, 2 of three tiles and 17 of one tile
+DECODE_EDGE_CASES = [
+    ((4, 300, 8, 2, 64), [1, 128, 129, 300]),
+    ((16, 300, 16, 8, 64), [1, 64, 65, 128, 129, 192, 193, 256, 257, 300] + [300] * 6),
+    ((4, 1056, 16, 2, 128), [64, 65, 1025, 1056]),
 ]
 DECODE_REDUCED_SHAPE = (2, 28, 4, 2, 16)           # reduced decode check, fp32
 DECODE_FULL_SHAPE = (4, 1056, 16, 2, 128)          # qwen2.5-3b decode, bf16
@@ -170,14 +192,21 @@ def compare(outs, plains, tol):
 
 
 def time_ms(fn, reps=5, inner=10, warmup=3) -> float:
-    """Median over ``reps`` of the mean time of ``inner`` back-to-back calls,
-    by CUDA events, after ``warmup`` calls."""
+    """Median over ``reps`` of the mean device time of ``inner`` back-to-back
+    calls, by CUDA events, after ``warmup`` calls. Before each rep the card
+    sleeps (``torch.cuda._sleep``) for longer than the host needs to queue
+    the calls, so the events time the card's work, not the host's launch
+    overhead (``enqueue_ms`` measures that)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    per_call_s = (time.perf_counter() - t0) / warmup  # host and device
     out = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e9 * (2 * inner * per_call_s + 1e-3)))  # cycles, <= 2 GHz
         start.record()
         for _ in range(inner):
             fn()
@@ -185,6 +214,20 @@ def time_ms(fn, reps=5, inner=10, warmup=3) -> float:
         end.synchronize()
         out.append(start.elapsed_time(end) / inner)
     return statistics.median(out)
+
+
+def enqueue_ms(fn, calls=20) -> float:
+    """Host time per call to queue ``fn`` (wrapper, checks, allocation,
+    launch) while the card sleeps, so the queue never blocks."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9 * 0.05))
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return host_ms
 
 
 def bound(flops, nbytes, dtype):
@@ -258,7 +301,8 @@ def phase_build():
 def phase_kernels():
     results = []
     cases = [(s, d) for s in REF_SHAPES for d in (torch.float32, torch.bfloat16)]
-    cases += [(REDUCED_SHAPE, torch.float32), (FULL_SHAPE, torch.bfloat16)]
+    cases += [(REDUCED_SHAPE, torch.float32), (REDUCED_SHAPE, torch.bfloat16),
+              (FULL_SHAPE, torch.bfloat16)]
     worst = 0.0
     for shape, dtype in cases:
         q, k, v = inputs(shape, dtype)
@@ -301,18 +345,22 @@ def phase_kernels():
 
 def phase_kernels_decode():
     results, worst = [], 0.0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [(s, d, None) for s in DECODE_REF_SHAPES for d in (torch.float32, torch.bfloat16)]
+    cases += [(s, d, lens) for s, lens in DECODE_EDGE_CASES
+              for d in (torch.float32, torch.bfloat16)]
     cases += [(DECODE_REDUCED_SHAPE, torch.float32, None),
               (DECODE_FULL_SHAPE, torch.bfloat16, DECODE_FULL_LENGTHS)]
     for shape, dtype, lengths in cases:
         q, k, v, lens = decode_inputs(shape, dtype, lengths)
+        n_split = dec.num_splits(shape[0], shape[3], shape[1], sms)
         out = ops.decode_attention(q, k, v, lens, use_kernel=True)
         torch.cuda.synchronize()
         plain = ops.decode_attention(q, k, v, lens, use_kernel=False)
         err, ok = compare([out], [plain], TOL[dtype])
         results.append({"shape": list(shape), "dtype": str(dtype).split(".")[1],
-                        "lengths": lens.tolist(), "max_abs_err": err, "tol": TOL[dtype],
-                        "ok": ok})
+                        "lengths": lens.tolist(), "n_split": n_split, "max_abs_err": err,
+                        "tol": TOL[dtype], "ok": ok})
         check(ok, f"decode_attention kernel disagrees at {shape} {dtype}: {err}")
         worst = max(worst, err)
     emit({"phase": "kernels", "kernel": dec.NAME, "cases": results})
@@ -335,10 +383,13 @@ def phase_kernels_decode():
         "library_ms": time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask)),
     }
     timing["ms_again"] = time_ms(kern)
+    timing["enqueue_ms"] = enqueue_ms(kern)
     bound_ms, bound_by, flops, nbytes = decode_bound_ms(
         DECODE_FULL_SHAPE, DECODE_FULL_LENGTHS, torch.bfloat16)
+    n_split = dec.num_splits(B, Hkv, L, sms)
     emit({"phase": "kernel_timing", "kernel": dec.NAME, "shape": list(DECODE_FULL_SHAPE),
-          "lengths": DECODE_FULL_LENGTHS, "dtype": "bfloat16", **timing,
+          "lengths": DECODE_FULL_LENGTHS, "n_split": n_split, "ctas": n_split * B * Hkv,
+          "dtype": "bfloat16", **timing,
           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
           "library": "scaled_dot_product_attention with a boolean length mask, GQA "
           "expanded outside the timed call", "library_max_abs_err": lib_err,
@@ -547,8 +598,14 @@ def profiled(fn):
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    ours = {}  # the port's kernels by their CUDA function names
+    for e in events:
+        for tag in PORT_KERNEL_NAMES:
+            if tag in e.key:
+                ours[tag] = ours.get(tag, 0.0) + e.self_device_time_total / 1e3
     return out, {"device_busy_ms": busy_ms, "profiled_wall_ms": wall_ms,
-                 "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top]}
+                 "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top],
+                 "port_kernels_ms": ours}
 
 
 def generate(cfg, params, prompt, steps, profile_it=False):

@@ -2,9 +2,11 @@
 ctypes).
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
-into ``<repo>/build/kernels/<name>-<source hash>.so`` at first use, for
-``sm_90a``. A changed source gets a new hash and is rebuilt; an unchanged
-one is loaded from the build directory. Several sources build in parallel
+into ``<repo>/build/kernels/<name>-<hash>.so`` at first use, for
+``sm_90a``. The hash covers the source, every shared header
+``csrc/*.cuh`` and the nvcc flags, so a changed source or header gets a
+new hash and is rebuilt; an unchanged one is loaded from the build
+directory. Several sources build in parallel
 (one ``nvcc`` each, all started together). Nothing here runs at import
 time: the CPU tests import this module and never build.
 """
@@ -42,9 +44,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:

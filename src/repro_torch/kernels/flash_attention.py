@@ -5,12 +5,17 @@ Replaces ``repro/kernels/flash_attention.py::_flash_kernel``, the Pallas
 TPU kernel. The kernel is ``csrc/flash_attention.cu``; its note says what
 bounds it on the H100 and what the design does about that. In short: one
 CTA owns one KV head and all G query heads of it for a tile of query
-positions, loops over k tiles with m/l/acc in fp32 registers, skips the
-tiles above the causal diagonal, and computes in fp32 FMA (no TF32).
+positions, loops over 64-key tiles with m/l/acc in fp32 registers and skips
+the tiles above the causal diagonal. It has two paths: fp32 inputs run on
+the CUDA cores in fp32 FMA (no TF32, so fp32 meets 3e-5); bf16 inputs run
+on the tensor cores (``mma.sync`` m16n8k16 with fp32 sums, FlashAttention-2's
+forward: 4 warps of 16 rows, a 2-stage ``cp.async`` ring of swizzled K/V
+tiles, P reused from registers as the A operand of P.V).
 
 The wrapper keeps the JAX signature and the (B, S, H, Dh) layout. It takes
-contiguous fp32 or bf16 CUDA tensors with Dh in {16, 32, 64, 128} and
-raises on anything else; it never falls back to the plain version. Outputs
+contiguous fp32 or bf16 CUDA tensors with Dh in {16, 32, 64, 128} that
+start on a 16-byte boundary, and raises on anything else; it never falls
+back to the plain version. Outputs
 are allocated here; the kernel runs on the current stream and nothing
 synchronises. ``launches`` counts kernel launches (and nothing else).
 """
@@ -73,11 +78,14 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one of "
                          f"{tuple(DTYPES)} for all three")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must start on a 16-byte boundary "
+                         "(the bf16 kernel copies 16 bytes at a time)")
     if not (q.is_cuda and k.is_cuda and v.is_cuda) or not (
             q.device == k.device == v.device):
         raise ValueError("q, k, v must be CUDA tensors on one device")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("q, k, v must be contiguous")
 
 
 def flash_attention(

@@ -7,6 +7,8 @@
   fixed-size kv blocks.
 * ``decode_attention`` is ``repro.models.layers.decode_attention_ref``: one
   query token per sequence against a KV cache in one dense masked pass.
+  ``decode_attention_split`` computes the same in the CUDA kernel's split-K
+  order (per-split partials, then one merge); only the tests use it.
 * ``ssd_scan`` is ``repro.models.mamba2.ssd_chunked_ref`` (with
   ``_segsum``): Mamba2's chunked SSD scan with an optional initial state.
 
@@ -160,6 +162,38 @@ def decode_attention(
                        v_cache.float())
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, 1, Hq, Dh).to(q.dtype)
+
+
+def decode_attention_split(
+    q: torch.Tensor,        # (B, 1, Hq, Dh)
+    k_cache: torch.Tensor,  # (B, L, Hkv, Dh)
+    v_cache: torch.Tensor,  # (B, L, Hkv, Dh)
+    lengths: torch.Tensor,  # (B,)
+    n_split: int,
+    *,
+    scale: Optional[float] = None,
+    block_k: int = 64,
+) -> torch.Tensor:
+    """``decode_attention`` in split-K order, as the CUDA kernel cuts the
+    cache: ``ceil(L / block_k)`` tiles, ``ceil(tiles / n_split)`` of them per
+    split. Each split's masked partial (m, l, acc) comes from
+    ``_softmax_partial`` and ``_combine_partials`` merges them; a split
+    that lies past the cache adds nothing. A split wholly past a length has
+    m = -1e30 there and weighs 0 in the merge, unless every split does
+    (length 0: the mean of V, like ``decode_attention``)."""
+    B, _, Hq, Dh = q.shape
+    L, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    qg = q.reshape(B, 1, Hkv, G, Dh)
+    tiles = -(-L // block_k)
+    per = -(-tiles // n_split) * block_k  # keys per split
+    valid = (torch.arange(L, device=q.device)[None, :]
+             < lengths.to(q.device)[:, None])[:, None, None, None, :]
+    parts = [_softmax_partial(qg, k_cache[:, lo:lo + per], v_cache[:, lo:lo + per],
+                              scale=scale, mask=valid[..., lo:lo + per])
+             for lo in range(0, L, per)]
+    return _combine_partials(parts).reshape(B, 1, Hq, Dh).to(q.dtype)
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:

@@ -27,6 +27,16 @@ SHAPES = [
     (1, 16, 16, 4, 2, 16, True),          # reduced serving shape
     (4, 1024, 1024, 16, 2, 128, True),    # full-width serving shape
     (1, 100, 100, 24, 8, 128, True),      # G=3 (phi4-mini), ragged tiles
+    # the tensor-core path's GQA packing and ragged 64-key tiles: G = 1, 3,
+    # 8, 16; causal Sq = Sk = 200, non-causal Sk = 333
+    (2, 200, 200, 2, 2, 64, True),
+    (1, 200, 200, 6, 2, 128, True),
+    (2, 200, 200, 16, 2, 128, True),
+    (1, 200, 200, 16, 1, 32, True),
+    (1, 200, 333, 2, 2, 64, False),
+    (1, 200, 333, 6, 2, 128, False),
+    (2, 200, 333, 16, 2, 128, False),
+    (1, 200, 333, 16, 1, 16, False),
 ]
 
 
@@ -118,6 +128,30 @@ def test_decode_kernel_reads_a_period_view_and_gives_zero_at_length_zero(cuda):
                                atol=3e-5, rtol=3e-5)
 
 
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_split", [None, 1, 2, 5])
+def test_decode_kernel_split_edges(cuda, dtype, n_split, monkeypatch):
+    """Lengths 1, 64k, 64k + 1 and L, and 0 (output 0), with the card's
+    number of splits and with fixed ones (1 = no split, 2 = runs of three
+    tiles, 5 = one tile each): a split wholly past a length weighs nothing
+    in the merge."""
+    if n_split is not None:
+        monkeypatch.setattr(dec, "num_splits", lambda *args: n_split)
+    B, L, Hq, Hkv, Dh = 7, 300, 8, 2, 64
+    q, k, v, _ = _decode_inputs(cuda, dtype, B, L, Hq, Hkv, Dh)
+    lengths = torch.tensor([1, 64, 65, 128, 129, L, 0], dtype=torch.int32, device=cuda)
+    before = dec.launches
+    out = dec.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert dec.launches == before + 1
+    assert float(out[-1].float().abs().max()) == 0.0
+    plain = ops.decode_attention(q, k, v, lengths, use_kernel=False)
+    tol = 2e-2 if dtype == "bfloat16" else 3e-5  # tests/test_kernels.py
+    np.testing.assert_allclose(out[:-1].float().cpu().numpy(),
+                               plain[:-1].float().cpu().numpy(), atol=tol, rtol=tol)
+
+
 # tests/test_kernels.py's SSD sweep plus the serving shapes: B, S, H, P, N, chunk
 SSD_SHAPES = [
     (2, 64, 4, 16, 16, 16),
@@ -180,6 +214,12 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
         ops.decode_attention(q, k, v, lengths.long())
     with pytest.raises(ValueError, match="contiguous"):
         ops.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, lengths)
+    shifted = torch.zeros(k.numel() + 1, device=cuda)[1:].reshape(k.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.decode_attention(q, shifted, v, lengths)
+    shifted = torch.zeros(k.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(q.bfloat16(), shifted.reshape(k.shape), v.bfloat16())
     x, dt, A, Bm, Cm = _ssd_inputs(cuda, "float32", 1, 32, 2, 16, 16)
     with pytest.raises(ValueError, match="float32"):
         ops.ssd_scan(x, dt.bfloat16(), A, Bm, Cm)

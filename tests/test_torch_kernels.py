@@ -5,6 +5,8 @@ the CPU, and the kernel wrappers' input checks. Inputs are drawn once with
 numpy and handed to both packages. The CUDA kernels' own tests are in
 test_torch_cuda.py, which imports no JAX so that it runs on a machine with
 the card."""
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ from repro.kernels.ssd_scan import ssd_scan as jax_ssd  # noqa: E402
 from repro.models.layers import decode_attention_ref as jax_decode_ref  # noqa: E402
 from repro.models.layers import flash_attention_ref as jax_flash_ref  # noqa: E402
 from repro.models.mamba2 import ssd_chunked_ref as jax_ssd_ref  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -94,11 +97,24 @@ def test_use_kernel_true_on_cpu_raises():
         ops.flash_attention(q, k, v, use_kernel="interpret")
 
 
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary: a view into a flat buffer, as ``x.view(-1)[1:]`` reshaped."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype)
+    skip = (-flat.data_ptr() % 16) // t.element_size() + 1
+    out = flat[skip:skip + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
 @pytest.mark.parametrize("case,match", [
     ("cpu", "CUDA"),
     ("head_dim", "head_dim"),
     ("dtype", "dtype"),
     ("group", "multiple"),
+    ("misaligned_q", "16-byte"),
+    ("misaligned_v_bf16", "16-byte"),
 ])
 def test_kernel_wrapper_refuses_what_it_does_not_take(case, match):
     """The wrapper raises before any build or launch; never falls back."""
@@ -109,6 +125,11 @@ def test_kernel_wrapper_refuses_what_it_does_not_take(case, match):
         q, k, v = (t.half() for t in (q, k, v))
     elif case == "group":
         q, k, v = _torch(_inputs(1, 16, 16, 3, 2, 16), "float32")
+    elif case == "misaligned_q":
+        q = _misaligned(q)
+    elif case == "misaligned_v_bf16":
+        q, k, v = (t.bfloat16() for t in (q, k, v))
+        v = _misaligned(v)
     before = fa.launches
     with pytest.raises(ValueError, match=match):
         fa.flash_attention(q, k, v)
@@ -144,6 +165,92 @@ def test_decode_plain_matches_jax_kernel_and_oracle(dtype, B, L, Hq, Hkv, Dh, bk
     tol = _tol(dtype)
     np.testing.assert_allclose(_f32(out), _f32(kernel), atol=tol, rtol=tol)
     np.testing.assert_allclose(_f32(out), _f32(oracle), atol=tol, rtol=tol)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_decode(dtype, B, L, Hq, Hkv, Dh, bk):
+    """The JAX decode kernel (interpret mode) and oracle on the sweep's
+    inputs, as float32 numpy; computed once per shape and dtype."""
+    q, k, v, lens = _decode_arrays(B, L, Hq, Hkv, Dh)
+    jq, jk, jv = [jnp.asarray(a).astype(dtype) for a in (q, k, v)]
+    kernel = jax_decode(jq, jk, jv, jnp.asarray(lens), block_k=bk, interpret=True)
+    oracle = jax_decode_ref(jq, jk, jv, jnp.asarray(lens), block_k=bk)
+    return _f32(kernel), _f32(oracle)
+
+
+@pytest.mark.parametrize("n_split", [1, 3, "tiles"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,L,Hq,Hkv,Dh,bk", DECODE_SHAPES)
+def test_decode_split_plain_matches_jax_kernel_and_oracle(dtype, B, L, Hq, Hkv, Dh, bk,
+                                                          n_split):
+    """The split-K order of the CUDA kernel (per-split partials, one merge)
+    gives the JAX kernel's and oracle's answer; with one split per 64-key
+    tile, splits wholly past the drawn lengths weigh nothing."""
+    if n_split == "tiles":
+        n_split = -(-L // dec.BLOCK_K)
+    q, k, v, lens = _decode_arrays(B, L, Hq, Hkv, Dh)
+    tq, tk, tv = _torch((q, k, v), dtype)
+    out = ref.decode_attention_split(tq, tk, tv, torch.from_numpy(lens), n_split)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    tol = _tol(dtype)
+    for want in _jax_decode(dtype, B, L, Hq, Hkv, Dh, bk):
+        np.testing.assert_allclose(_f32(out), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_split", [2, 5, 7])
+def test_decode_split_with_splits_past_the_lengths(dtype, n_split):
+    """Lengths 1, 64, 65, 129 and L = 300 (5 tiles): most splits lie wholly
+    past a length, and with 7 splits of one tile two lie past the cache."""
+    q, k, v, _ = _decode_arrays(5, 300, 8, 2, 32)
+    lens = np.array([1, 64, 65, 129, 300], dtype=np.int32)
+    tq, tk, tv = _torch((q, k, v), dtype)
+    out = ref.decode_attention_split(tq, tk, tv, torch.from_numpy(lens), n_split)
+    jq, jk, jv = [jnp.asarray(a).astype(dtype) for a in (q, k, v)]
+    want = jax_decode_ref(jq, jk, jv, jnp.asarray(lens))
+    tol = _tol(dtype)
+    np.testing.assert_allclose(_f32(out), _f32(want), atol=tol, rtol=tol)
+    np.testing.assert_allclose(
+        _f32(out), _f32(ref.decode_attention(tq, tk, tv, torch.from_numpy(lens))),
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,Hkv,L,sms", [
+    (4, 2, 1056, 132),   # full-width qwen2.5-3b decode: 17 splits x 8 = 136 CTAs
+    (2, 2, 28, 132),     # reduced: one tile, one split
+    (1, 2, 1024, 132),
+    (64, 8, 4096, 132),  # more (sequence, head) pairs than SMs: one split
+    (1, 1, 100_000, 132),
+    (3, 8, 300, 80),
+])
+def test_num_splits_covers_the_cache_in_about_one_wave(B, Hkv, L, sms):
+    n = dec.num_splits(B, Hkv, L, sms)
+    tiles = -(-L // dec.BLOCK_K)
+    per = -(-tiles // n)  # tiles per split, as the kernel cuts them
+    assert 1 <= n <= tiles
+    assert n * per * dec.BLOCK_K >= L              # the splits cover the cache
+    assert (n - 1) * per * dec.BLOCK_K < L         # and none lies past it
+    assert B * Hkv * n <= max(2 * sms, B * Hkv)    # about one wave, at most two
+    if (B, Hkv, L, sms) == (4, 2, 1056, 132):
+        assert (n, B * Hkv * n) == (17, 136)
+
+
+def test_build_target_hashes_the_source_and_every_header(tmp_path, monkeypatch):
+    """A changed shared header (csrc/*.cuh) gives every kernel a new
+    library path, so a stale .so is never loaded."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "kern.cu").write_text('#include "ptx.cuh"\n')
+    (tmp_path / "ptx.cuh").write_text("// v1\n")
+    first = _build._target("kern")
+    assert _build._target("kern") == first            # unchanged: same library
+    (tmp_path / "ptx.cuh").write_text("// v2\n")
+    second = _build._target("kern")
+    assert second != first and second.name.startswith("kern-")
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    third = _build._target("kern")
+    assert third not in (first, second)
+    (tmp_path / "kern.cu").write_text('#include "ptx.cuh"\n// edit\n')
+    assert _build._target("kern") not in (first, second, third)
 
 
 # tests/test_kernels.py's SSD sweep: B, S, H, P, N, chunk
@@ -247,6 +354,7 @@ def test_ops_new_kernels_on_cpu_take_plain_versions_and_launch_nothing():
     ("decode_cpu", "CUDA"),
     ("decode_lengths", "int32"),
     ("decode_group", "query heads"),
+    ("decode_misaligned", "16-byte"),
     ("ssd_cpu", "CUDA"),
     ("ssd_dt_dtype", "float32"),
     ("ssd_state_shape", "initial_state"),
@@ -260,6 +368,8 @@ def test_new_kernel_wrappers_refuse_what_they_do_not_take(case, match):
             q, k, v, lens = _decode_arrays(2, 32, H, 2, 16)
             tq, tk, tv = _torch((q, k, v), "float32")
             tl = torch.from_numpy(lens)
+            if case == "decode_misaligned":
+                tk = _misaligned(tk)
             dec.decode_attention(tq, tk, tv, tl.long() if case == "decode_lengths" else tl)
         else:
             _, (x, dt, A, Bm, Cm) = _ssd_both(_ssd_arrays(1, 32, 2, 16, 16), "float32")
