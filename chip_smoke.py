@@ -15,7 +15,9 @@ Phases, one JSON line each:
                  PyTorch library call where one computes the same function
                  (the yardstick only) and its bound: flash attention (K1),
                  decode attention (K2, with its number of splits and the
-                 host's cost of one call), SSD scan (K3);
+                 host's cost of one call), SSD scan (K3: bf16 initial-state
+                 and strided-view cases too, and at full width each of the
+                 bf16 route's four kernels timed alone beside the whole);
 4. reduced       SageRuntime serves the reduced qwen2.5-3b cold -> warm -> warm;
 5. full          SageRuntime serves the full-width qwen2.5-3b (36 layers,
                  d_model 2048, bf16, random weights from a seed), batch
@@ -70,7 +72,7 @@ from repro_torch.serving import greedy_sample, make_decode_step, make_prefill_st
 KERNELS = {fa.NAME: fa, dec.NAME: dec, ssd.NAME: ssd}
 # the CUDA functions of those kernels, as the profiler names them
 PORT_KERNEL_NAMES = ("flash_fwd_kernel", "flash_fwd_bf16_kernel", "decode_split_kernel",
-                     "decode_combine_kernel", "ssd_kernel")
+                     "decode_combine_kernel", "ssd_kernel", *ssd.STAGES)
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound's rates
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
@@ -119,6 +121,14 @@ SSD_REF_SHAPES = [  # tests/test_kernels.py SSD sweep: B, S, H, P, N, chunk
     (1, 128, 2, 32, 64, 32),
     (2, 100, 3, 16, 32, 32),
     (1, 256, 8, 64, 128, 64),
+]
+# the bf16 route's edges: S < chunk, a ragged last chunk of 72 rows, jamba's
+# P = 128 with S < chunk, a chunk (10) that is not a multiple of 16
+SSD_EDGE_SHAPES = [
+    (2, 10, 2, 16, 16, 16),
+    (1, 200, 4, 64, 128, 128),
+    (2, 40, 2, 128, 128, 64),
+    (2, 45, 3, 32, 48, 10),
 ]
 SSD_REDUCED_SHAPE = (1, 16, 8, 16, 16, 16)         # mamba2-780m reduced, fp32
 SSD_FULL_SHAPE = (4, 1024, 48, 64, 128, 128)       # mamba2-780m prefill, bf16
@@ -400,8 +410,10 @@ def phase_kernels_decode():
 
 def phase_kernels_ssd():
     results, worst = [], 0.0
-    cases = [(s, d) for s in SSD_REF_SHAPES for d in (torch.float32, torch.bfloat16)]
-    cases += [(SSD_REDUCED_SHAPE, torch.float32), (SSD_FULL_SHAPE, torch.bfloat16)]
+    cases = [(s, d) for s in SSD_REF_SHAPES + SSD_EDGE_SHAPES
+             for d in (torch.float32, torch.bfloat16)]
+    cases += [(SSD_REDUCED_SHAPE, torch.float32), (SSD_REDUCED_SHAPE, torch.bfloat16),
+              (SSD_FULL_SHAPE, torch.bfloat16)]
     for shape, dtype in cases:
         args = ssd_inputs(shape, dtype)
         out = ops.ssd_scan(*args, chunk=shape[-1], use_kernel=True)
@@ -412,16 +424,27 @@ def phase_kernels_ssd():
                         "max_abs_err": err, "tol": SSD_TOL[dtype], "ok": ok})
         check(ok, f"ssd_scan kernel disagrees at {shape} {dtype}: {err}")
         worst = max(worst, err)
-    # a scan continued from an initial state (no padded copy, no oracle)
-    args = ssd_inputs(SSD_REF_SHAPES[2], torch.float32)
-    s0 = torch.randn((2, 3, 16, 32), device="cuda",
-                     generator=torch.Generator("cuda").manual_seed(0))
-    out = ops.ssd_scan(*args, chunk=32, initial_state=s0, use_kernel=True)
-    plain = ops.ssd_scan(*args, chunk=32, initial_state=s0, use_kernel=False)
-    err, ok = compare(out, plain, SSD_TOL[torch.float32])
-    results.append({"shape": list(SSD_REF_SHAPES[2]), "dtype": "float32",
-                    "initial_state": True, "max_abs_err": err, "ok": ok})
-    check(ok, f"ssd_scan kernel disagrees with an initial state: {err}")
+    # a scan continued from an initial state, on x/B/C as slices of one fused
+    # tensor (the Mamba2 block's layout), and both at once
+    B, S, H, P, N, chunk = SSD_REF_SHAPES[2]
+    s0 = torch.randn((B, H, P, N), device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    for dtype in (torch.float32, torch.bfloat16):
+        args = ssd_inputs(SSD_REF_SHAPES[2], dtype)
+        x, dt, A, Bm, Cm = args
+        fused = torch.cat([x.reshape(B, S, H * P), Bm, Cm], dim=-1)
+        xv, Bv, Cv = torch.split(fused, [H * P, N, N], dim=-1)
+        views = (xv.reshape(B, S, H, P), dt, A, Bv, Cv)
+        for init, strided in ((s0, False), (None, True), (s0, True)):
+            out = ops.ssd_scan(*(views if strided else args), chunk=chunk, initial_state=init,
+                               use_kernel=True)
+            plain = ops.ssd_scan(*args, chunk=chunk, initial_state=init, use_kernel=False)
+            err, ok = compare(out, plain, SSD_TOL[dtype])
+            results.append({"shape": list(SSD_REF_SHAPES[2]), "dtype": str(dtype).split(".")[1],
+                            "initial_state": init is not None, "strided_views": strided,
+                            "max_abs_err": err, "tol": SSD_TOL[dtype], "ok": ok})
+            check(ok, f"ssd_scan kernel disagrees (initial state {init is not None}, "
+                  f"views {strided}, {dtype}): {err}")
+            worst = max(worst, err)
     emit({"phase": "kernels", "kernel": ssd.NAME, "cases": results})
 
     args = ssd_inputs(SSD_FULL_SHAPE, torch.bfloat16)
@@ -434,14 +457,34 @@ def phase_kernels_ssd():
         "library_ms": None,
     }
     timing["ms_again"] = time_ms(kern, inner=5)
+    parts, scratch_bytes = ssd_part_times(args, chunk)
     bound_ms, bound_by, flops, nbytes = ssd_bound_ms(SSD_FULL_SHAPE, torch.bfloat16)
     emit({"phase": "kernel_timing", "kernel": ssd.NAME, "shape": list(SSD_FULL_SHAPE),
-          "dtype": "bfloat16", **timing, "bound_ms": bound_ms, "bound_by": bound_by,
-          "flops": flops, "bytes": nbytes,
+          "dtype": "bfloat16", **timing, "parts_ms": parts, "scratch_bytes": scratch_bytes,
+          "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
           "library": "none: no single PyTorch call computes the chunked SSD scan",
           "tflops": flops / timing["ms"] / 1e9})
-    return {"max_abs_err": worst, **timing, "bound_ms": bound_ms, "bound_by": bound_by,
-            "shape": list(SSD_FULL_SHAPE)}
+    return {"max_abs_err": worst, **timing, "parts_ms": parts, "bound_ms": bound_ms,
+            "bound_by": bound_by, "shape": list(SSD_FULL_SHAPE)}
+
+
+def ssd_part_times(args, chunk):
+    """Device time of each of the bf16 route's four kernels alone at the
+    shape of ``args``, on one call's scratch (after a whole scan filled
+    it), and of the four launched together without the wrapper; returns
+    (times by kernel, the scratch's bytes)."""
+    x, dt, A, Bm, Cm = args
+    strides = ssd.check_inputs(*args, None)
+    dims = (*x.shape, Bm.shape[-1], chunk)
+    cb, states, decay = ssd.bf16_scratch(*dims, x.device)
+    bufs = dict(x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, y=torch.empty_like(x), cb=cb, states=states,
+                decay=decay, fs=torch.empty((dims[0], *dims[2:5]), device=x.device))
+    every = sum(ssd.STAGES.values())
+    ssd.launch_bf16(every, dims, strides, **bufs)
+    parts = {name: time_ms(lambda bit=bit: ssd.launch_bf16(bit, dims, strides, **bufs))
+             for name, bit in ssd.STAGES.items()}
+    parts["all_four"] = time_ms(lambda: ssd.launch_bf16(every, dims, strides, **bufs))
+    return parts, sum(t.numel() * t.element_size() for t in (cb, states, decay))
 
 
 def drain(rt) -> dict:
@@ -756,6 +799,7 @@ def main():
         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "ms_again": t["ms_again"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"], "shape": t["shape"], "card": smi,
+        **({"parts_ms": t["parts_ms"]} if "parts_ms" in t else {}),
     } for name, t in timings.items()]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -209,6 +209,79 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, diff, -math.inf)
 
 
+def _chunked(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B, S, *rest) in any dtype -> (B, n_c, chunk, *rest) fp32, zero-padded
+    to whole chunks: dt = 0 padding, which leaves the state unchanged (decay
+    exp(0) = 1, update 0)."""
+    t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, -t.shape[1] % chunk)).to(torch.float32)
+    return t.reshape(t.shape[0], t.shape[1] // chunk, chunk, *t.shape[2:])
+
+
+def _chunk_cumsum(dt: torch.Tensor, A: torch.Tensor, chunk: int):
+    """(dA, cs): dt * A and its inclusive cumsum within each chunk, (B, c, l, H)."""
+    dA = _chunked(dt.to(torch.float32) * A.to(torch.float32), chunk)
+    return dA, torch.cumsum(dA, dim=2)
+
+
+def _chunk_xdt(x: torch.Tensor, dt: torch.Tensor, chunk: int) -> torch.Tensor:
+    """x * dt in fp32, (B, c, l, H, P)."""
+    return _chunked(x.to(torch.float32) * dt.to(torch.float32)[..., None], chunk)
+
+
+# The chunked SSD scan in four pieces, the decomposition of Mamba2's GPU
+# kernels and of the bf16 CUDA route (csrc/ssd_scan.cu): C B^T per chunk, the
+# chunk-local states, the pass of the states across chunks, and each chunk's
+# output from its entering state and its own positions. T = min(chunk, S);
+# each piece pads a ragged last chunk with zeros itself.
+
+def ssd_chunk_cb(Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
+    """CB[b, c, l, s] = C_l . B_s within chunk c: (B, n_c, T, T) fp32. B and C
+    are shared by all heads, so this is once per (sequence, chunk)."""
+    T = min(chunk, Bm.shape[1])
+    return torch.einsum("bcln,bcsn->bcls", _chunked(Cm, T), _chunked(Bm, T))
+
+
+def ssd_chunk_state(x, dt, A, Bm, *, chunk: int = 128):
+    """The chunk-local states and decays: (states (B, n_c, H, P, N) with
+    states[c] = sum_l x_l dt_l exp(cs_last - cs_l) B_l, chunk_decay (B, n_c, H)
+    = exp(cs_last)), both fp32."""
+    T = min(chunk, x.shape[1])
+    xb = _chunk_xdt(x, dt, T)
+    _, dA_cs = _chunk_cumsum(dt, A, T)
+    decay_states = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)  # (B,c,l,H)
+    states = torch.einsum("bcln,bclh,bclhp->bchpn", _chunked(Bm, T), decay_states, xb)
+    return states, torch.exp(dA_cs[:, :, -1, :])
+
+
+def ssd_state_pass(states, chunk_decay, initial_state=None):
+    """The recurrence over chunks (the JAX lax.scan): returns (the state
+    entering each chunk (B, n_c, H, P, N), the final state (B, H, P, N))."""
+    Bsz, nc, H, P, N = states.shape
+    s = (initial_state.to(torch.float32) if initial_state is not None
+         else torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=states.device))
+    prev = []
+    for c in range(nc):
+        prev.append(s)  # the state entering chunk c
+        s = s * chunk_decay[:, c, :, None, None] + states[:, c]
+    return torch.stack(prev, dim=1), s
+
+
+def ssd_chunk_scan(x, dt, A, Cm, cb, prev_states, *, chunk: int = 128) -> torch.Tensor:
+    """y (B, S, H, P) in x's dtype: the masked intra-chunk product
+    (C B^T * L) . (x dt) plus the entering state's part exp(cs_l) C_l . state."""
+    Bsz, S, H, P = x.shape
+    T = min(chunk, S)
+    xb = _chunk_xdt(x, dt, T)
+    dA, dA_cs = _chunk_cumsum(dt, A, T)
+    Lmat = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))  # (B,c,H,l,l)
+    M = cb[:, :, None] * Lmat  # (B,c,H,l,s)
+    y_diag = torch.einsum("bchls,bcshp->bclhp", M, xb)
+    state_decay = torch.exp(dA_cs)  # (B,c,l,H)
+    y_off = torch.einsum("bcln,bchpn,bclh->bclhp", _chunked(Cm, T), prev_states, state_decay)
+    y = (y_diag + y_off).reshape(Bsz, -1, H, P)[:, :S]
+    return y.to(x.dtype)
+
+
 def ssd_scan(
     x: torch.Tensor,   # (B, S, H, P)
     dt: torch.Tensor,  # (B, S, H)  (already softplus'd, > 0)
@@ -219,51 +292,50 @@ def ssd_scan(
     chunk: int = 128,
     initial_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan, all in fp32. Returns (y (B,S,H,P) in x's dtype,
-    final_state (B,H,P,N) fp32). A ragged last chunk is padded with dt = 0,
-    which leaves the state unchanged (decay exp(0) = 1, update 0)."""
+    """Chunked SSD scan, all in fp32, composed of the four pieces above.
+    Returns (y (B,S,H,P) in x's dtype, final_state (B,H,P,N) fp32). A ragged
+    last chunk is padded with dt = 0, which leaves the state unchanged."""
+    cb = ssd_chunk_cb(Bm, Cm, chunk=chunk)
+    states, chunk_decay = ssd_chunk_state(x, dt, A, Bm, chunk=chunk)
+    prev_states, final = ssd_state_pass(states, chunk_decay, initial_state)
+    return ssd_chunk_scan(x, dt, A, Cm, cb, prev_states, chunk=chunk), final
+
+
+def _bf16_operand(v: torch.Tensor, split: bool) -> torch.Tensor:
+    """v as the tensor cores take it: rounded to bf16, or (split) as a bf16
+    high part plus a bf16 low part, v - hi rounded, in two products."""
+    hi = v.to(torch.bfloat16).to(torch.float32)
+    return hi + (v - hi).to(torch.bfloat16).to(torch.float32) if split else hi
+
+
+def ssd_scan_bf16_split(x, dt, A, Bm, Cm, *, chunk: int = 128, initial_state=None,
+                        split: bool = True):
+    """``ssd_scan`` with exactly the operands rounded that the bf16 CUDA route
+    gives the tensor cores: x, B and C go in as they are (bf16 already);
+    M = C B^T * exp(cs_l - cs_s) * dt_s, dt w B and the entering state are
+    fp32 and go in as hi + lo bf16 (``split``) or rounded once. Sums stay
+    fp32. Only the tests use it: with ``split=False`` some outputs miss
+    the bf16 criterion, which is why the kernels split."""
     Bsz, S, H, P = x.shape
-    N = Bm.shape[-1]
-    chunk = min(chunk, S)
-    pad = (-S) % chunk
-    if pad:  # dt=0 padding is state-neutral: decay=exp(0)=1, update=0
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, pad))
-    S_out, S = S, S + pad
-    nc = S // chunk
-    f32 = torch.float32
-
-    xb = (x.to(f32) * dt.to(f32)[..., None]).reshape(Bsz, nc, chunk, H, P)
-    dA = (dt.to(f32) * A.to(f32)).reshape(Bsz, nc, chunk, H)  # (B,c,l,H)
-    Bc = Bm.to(f32).reshape(Bsz, nc, chunk, N)
-    Cc = Cm.to(f32).reshape(Bsz, nc, chunk, N)
-
-    dA_cs = torch.cumsum(dA, dim=2)  # (B,c,l,H) inclusive cumsum within chunk
-    # --- intra-chunk (diagonal blocks): quadratic attention-like form
-    Lmat = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))  # (B,c,H,l,l)
-    CB = torch.einsum("bcln,bcsn->bcls", Cc, Bc)  # (B,c,l,s)
-    M = CB[:, :, None] * Lmat  # (B,c,H,l,s)
-    y_diag = torch.einsum("bchls,bcshp->bclhp", M, xb)
-
-    # --- chunk-final states: S_c = sum_s B_s x_s * exp(dA_end - dA_cs_s)
-    decay_states = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)  # (B,c,l,H)
-    states = torch.einsum("bcln,bclh,bclhp->bchpn", Bc, decay_states, xb)
-
-    # --- inter-chunk recurrence over chunk states (the JAX lax.scan)
-    chunk_decay = torch.exp(dA_cs[:, :, -1, :])  # (B,c,H)
-    s = (initial_state.to(f32) if initial_state is not None
-         else torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device))
-    prev = []
-    for c in range(nc):
-        prev.append(s)  # the state entering chunk c
-        s = s * chunk_decay[:, c, :, None, None] + states[:, c]
-    prev_states = torch.stack(prev, dim=1)  # (B,c,H,P,N)
-
-    # --- inter-chunk contribution: C_l · state_in · exp(dA_cs_l)
-    state_decay = torch.exp(dA_cs)  # (B,c,l,H)
-    y_off = torch.einsum("bcln,bchpn,bclh->bclhp", Cc, prev_states, state_decay)
-
-    y = (y_diag + y_off).reshape(Bsz, S, H, P)[:, :S_out]
-    return y.to(x.dtype), s
+    T = min(chunk, S)
+    xc = _chunked(x, T)  # (B,c,l,H,P), exact
+    Bc, Cc = _chunked(Bm, T), _chunked(Cm, T)
+    dtc = _chunked(dt, T)  # (B,c,l,H)
+    _, cs = _chunk_cumsum(dt, A, T)
+    # the chunk states: x . R(dt w B)
+    f = dtc * torch.exp(cs[:, :, -1:, :] - cs)  # (B,c,l,H)
+    dwb = _bf16_operand(f[..., None] * Bc[:, :, :, None, :], split)  # (B,c,l,H,N)
+    states = torch.einsum("bclhp,bclhn->bchpn", xc, dwb)
+    prev_states, final = ssd_state_pass(states, torch.exp(cs[:, :, -1, :]), initial_state)
+    # y = exp(cs_l) C_l . R(state_in) + R(M) . x
+    y_off = torch.einsum("bcln,bchpn->bclhp", Cc, _bf16_operand(prev_states, split))
+    y_off = y_off * torch.exp(cs)[..., None]
+    cb = torch.einsum("bcln,bcsn->bcls", Cc, Bc)
+    csh = cs.permute(0, 1, 3, 2)  # (B,c,H,l)
+    decay = torch.exp(csh[..., :, None] - csh[..., None, :])
+    ii = torch.arange(T, device=x.device)
+    M = torch.where(ii[:, None] >= ii[None, :],
+                    cb[:, :, None] * decay * dtc.permute(0, 1, 3, 2)[..., None, :], 0.0)
+    y_diag = torch.einsum("bchls,bcshp->bclhp", _bf16_operand(M, split), xc)
+    y = (y_off + y_diag).reshape(Bsz, -1, H, P)[:, :S]
+    return y.to(x.dtype), final

@@ -1,12 +1,26 @@
-"""Mamba2's chunked SSD scan: the hand-written CUDA kernel for Hopper and
-its wrapper.
+"""Mamba2's chunked SSD scan: the hand-written CUDA kernels for Hopper and
+their wrapper.
 
 Replaces ``repro/kernels/ssd_scan.py::_ssd_kernel`` (+ ``_segsum``), the
-Pallas TPU kernel. The kernel is ``csrc/ssd_scan.cu``; its note says what
-bounds it on the H100 and what the design does about that. In short: one
-CTA per (head, sequence) runs the chunks in order with the (P, N) state in
-fp32 in shared memory, reads B/C by (sequence, position) for every head,
-treats a ragged last chunk as dt = 0 padding, and computes in fp32 FMA.
+Pallas TPU kernel. The kernels are in ``csrc/ssd_scan.cu``; its note says
+what bounds them on the H100 and what the design does about that. Two
+routes, by dtype:
+
+* fp32 (``ssd_kernel``): one CTA per (head, sequence) runs the chunks in
+  order with the (P, N) state in fp32 in shared memory, in fp32 FMA on the
+  CUDA cores (it must meet 1e-3).
+* bf16: chunk-parallel on the tensor cores, four launches per call:
+  ``ssd_chunk_cb_kernel`` (C B^T once per (sequence, chunk)),
+  ``ssd_chunk_state_kernel`` (each chunk's local state),
+  ``ssd_state_pass_kernel`` (the recurrence over chunks) and
+  ``ssd_chunk_scan_kernel`` (y), mirroring ``ref.ssd_chunk_cb``,
+  ``ref.ssd_chunk_state``, ``ref.ssd_state_pass`` and ``ref.ssd_chunk_scan``.
+  P and N must be multiples of 16 and at most 128, the chunk at most 128;
+  x, B and C must start on a 16-byte boundary with positions a multiple of
+  16 bytes apart. Its scratch (C B^T, the chunk states, the decays) is
+  allocated per call, since the runtime's executor threads launch at once.
+  ``chunk_cb``, ``chunk_state``, ``state_pass`` and ``chunk_scan`` launch
+  one of the four alone, for the tests.
 
 Unlike the TPU kernel it takes ``initial_state``, so ``ops.ssd_scan`` never
 needs the plain version for a CUDA tensor. The wrapper keeps the JAX
@@ -14,11 +28,12 @@ signature: x (B, S, H, P) and B/C (B, S, N) in fp32 or bf16 (one dtype for
 the three), dt (B, S, H) and A (H,) in fp32, initial_state (B, H, P, N)
 fp32 or None. x, B and C may be views whose positions are a fixed number of
 elements apart with the inner dims contiguous (the slices of the Mamba2
-block's fused projection are); the rest must be contiguous. It raises on
-anything else and never falls back to the plain version. Returns
-(y (B, S, H, P) in x's dtype, final_state (B, H, P, N) fp32), both
-allocated here; the kernel runs on the current stream and nothing
-synchronises. ``launches`` counts kernel launches (and nothing else).
+block's fused projection are); the rest must be contiguous. It raises
+ValueError on anything else and never falls back to the plain version or
+to the other route. Returns (y (B, S, H, P) in x's dtype, final_state
+(B, H, P, N) fp32), both allocated here; the kernels run on the current
+stream and nothing synchronises. ``launches`` counts one per call of
+``ssd_scan`` that launched its kernels (and nothing else).
 """
 from __future__ import annotations
 
@@ -31,7 +46,12 @@ import torch
 from repro_torch.kernels import _build
 
 NAME = "ssd_scan"
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = (torch.float32, torch.bfloat16)
+#: bf16 route: P and N multiples of 16 and at most this, the chunk at most this
+MAX_DIM = 128
+#: the bf16 route's kernels, by the bit that launches each
+STAGES = {"ssd_chunk_cb_kernel": 1, "ssd_chunk_state_kernel": 2,
+          "ssd_state_pass_kernel": 4, "ssd_chunk_scan_kernel": 8}
 
 #: kernel launches made by ``ssd_scan`` in this process
 launches = 0
@@ -46,9 +66,12 @@ def _kernel():
     if _lib is None:
         lib = _build.load(NAME)
         lib.ssd_scan_fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
-            ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_longlong] * 3 + [ctypes.c_void_p]
         lib.ssd_scan_fwd.restype = ctypes.c_int
-        lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.ssd_scan_bf16_fwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+            ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        lib.ssd_scan_bf16_fwd.restype = ctypes.c_int
+        lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
         lib.ssd_scan_smem_limit.argtypes = []
         lib.ssd_scan_smem_limit.restype = ctypes.c_longlong
@@ -111,6 +134,47 @@ def check_inputs(x, dt, A, Bm, Cm, initial_state) -> Tuple[int, int, int]:
     return strides
 
 
+def check_bf16(P: int, N: int, chunk: int, tensors, strides) -> None:
+    """Raise ValueError for what the bf16 route does not take: P or N not a
+    multiple of 16 or above MAX_DIM, a chunk above MAX_DIM, or x/B/C not on
+    a 16-byte boundary with positions a multiple of 16 bytes apart."""
+    if P % 16 or N % 16 or P > MAX_DIM or N > MAX_DIM:
+        raise ValueError(f"bf16 SSD scan needs P and N multiples of 16 and at most "
+                         f"{MAX_DIM}, not P={P}, N={N}")
+    if chunk > MAX_DIM:
+        raise ValueError(f"bf16 SSD scan needs chunk <= {MAX_DIM}, not {chunk}")
+    if any(t.data_ptr() % 16 for t in tensors) or any(rs % 8 for rs in strides):
+        raise ValueError("bf16 SSD scan needs x, B and C on a 16-byte boundary with "
+                         "positions a multiple of 16 bytes apart")
+
+
+def _padded_chunk(chunk: int) -> int:
+    return -(-chunk // 16) * 16
+
+
+def launch_bf16(stages, dims, strides=(0, 0, 0), *, x=None, dt=None, A=None, Bm=None,
+                 Cm=None, init=None, y=None, fs=None, cb=None, states=None, decay=None):
+    """Launch the bf16 kernels in ``stages`` (a sum of STAGES' bits) on the
+    current stream; None stands for a tensor those stages do not touch."""
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    device = next(t.device for t in (x, Bm, states) if t is not None)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _kernel().ssd_scan_bf16_fwd(
+            ptr(x), ptr(dt), ptr(A), ptr(Bm), ptr(Cm), ptr(init), ptr(y), ptr(fs),
+            ptr(cb), ptr(states), ptr(decay), *dims, *strides, stages, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan bf16 kernel launch failed: CUDA error {err}")
+
+
+def bf16_scratch(Bsz, S, H, P, N, chunk, device):
+    """(cb, states, decay) for one call, fp32, uninitialised."""
+    nc, Tp = -(-S // chunk), _padded_chunk(chunk)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((Bsz, nc, Tp, Tp), **f32), torch.empty((Bsz, nc, H, P, N), **f32),
+            torch.empty((Bsz, H, nc), **f32))
+
+
 def ssd_scan(
     x: torch.Tensor,   # (B, S, H, P)
     dt: torch.Tensor,  # (B, S, H) (softplus'd)
@@ -123,28 +187,110 @@ def ssd_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunked SSD scan on the card. Returns (y, final_state)."""
     global launches
-    x_rs, b_rs, c_rs = check_inputs(x, dt, A, Bm, Cm, initial_state)
+    strides = check_inputs(x, dt, A, Bm, Cm, initial_state)
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, not {chunk}")
     chunk = min(chunk, S)
-    lib = _kernel()
-    dtype = DTYPES[x.dtype]
-    need, limit = lib.ssd_scan_smem_bytes(dtype, chunk, P, N), lib.ssd_scan_smem_limit()
-    if need > limit:
-        raise ValueError(f"chunk={chunk}, P={P}, N={N} needs {need} bytes of shared "
-                         f"memory; a block has {limit}")
+    dims = (Bsz, S, H, P, N, chunk)
     y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
     fs = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-    init_ptr = initial_state.data_ptr() if initial_state is not None else None
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ssd_scan_fwd(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                               Cm.data_ptr(), init_ptr, y.data_ptr(), fs.data_ptr(),
-                               Bsz, S, H, P, N, chunk, x_rs, b_rs, c_rs, dtype, stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
+    if x.dtype == torch.bfloat16:
+        check_bf16(P, N, chunk, (x, Bm, Cm), strides)
+        cb, states, decay = bf16_scratch(*dims, x.device)
+        launch_bf16(sum(STAGES.values()), dims, strides, x=x, dt=dt, A=A, Bm=Bm, Cm=Cm,
+                    init=initial_state, y=y, fs=fs, cb=cb, states=states, decay=decay)
+    else:
+        lib = _kernel()
+        need, limit = lib.ssd_scan_smem_bytes(chunk, P, N), lib.ssd_scan_smem_limit()
+        if need > limit:
+            raise ValueError(f"chunk={chunk}, P={P}, N={N} needs {need} bytes of shared "
+                             f"memory; a block has {limit}")
+        init_ptr = initial_state.data_ptr() if initial_state is not None else None
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.ssd_scan_fwd(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                                   Cm.data_ptr(), init_ptr, y.data_ptr(), fs.data_ptr(),
+                                   *dims, *strides, stream)
+        if err != 0:
+            raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     with _count_lock:  # the runtime's executor threads may launch concurrently
         launches += 1
     return y, fs
+
+
+# ---- the bf16 route's four kernels one at a time, for the tests: the
+# counterparts of ref.ssd_chunk_cb, ref.ssd_chunk_state, ref.ssd_state_pass
+# and ref.ssd_chunk_scan. None of them counts in ``launches``.
+
+def _bf16_inputs(x, dt, A, Bm, chunk):
+    """Check x/dt/A/B (B doubling for C) for the bf16 route; returns (dims,
+    strides) with the chunk cut to S."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"the bf16 route takes bf16 x, B, C, not {x.dtype}")
+    strides = check_inputs(x, dt, A, Bm, Bm, None)
+    Bsz, S, H, P = x.shape
+    chunk = min(chunk, S)
+    check_bf16(P, Bm.shape[-1], chunk, (x, Bm), strides)
+    return (Bsz, S, H, P, Bm.shape[-1], chunk), strides
+
+
+def chunk_cb(Bm, Cm, *, chunk: int = 128) -> torch.Tensor:
+    """``ssd_chunk_cb_kernel`` alone: CB (B, n_c, Tp, Tp) fp32 with Tp the
+    chunk rounded up to 16; blocks above the diagonal stay 0."""
+    if Bm.dtype != torch.bfloat16 or Cm.dtype != Bm.dtype or Bm.shape != Cm.shape:
+        raise ValueError("need B and C (B, S, N) in bf16")
+    if not (Bm.is_cuda and Cm.is_cuda):
+        raise ValueError("B and C must be CUDA tensors")
+    Bsz, S, N = Bm.shape
+    T = min(chunk, S)
+    strides = (_row_stride(Bm), _row_stride(Cm))
+    if None in strides:
+        raise ValueError("B and C need a contiguous inner dim and a fixed distance "
+                         "between positions")
+    check_bf16(16, N, T, (Bm, Cm), strides)
+    cb = torch.zeros((Bsz, -(-S // T), _padded_chunk(T), _padded_chunk(T)),
+                     dtype=torch.float32, device=Bm.device)
+    launch_bf16(STAGES["ssd_chunk_cb_kernel"], (Bsz, S, 1, 16, N, T), (0, *strides),
+                Bm=Bm, Cm=Cm, cb=cb)
+    return cb
+
+
+def chunk_state(x, dt, A, Bm, *, chunk: int = 128):
+    """``ssd_chunk_state_kernel`` alone: (states (B, n_c, H, P, N), decay
+    (B, H, n_c) = exp(cs_last)), fp32."""
+    dims, strides = _bf16_inputs(x, dt, A, Bm, chunk)
+    _, states, decay = bf16_scratch(*dims, x.device)
+    launch_bf16(STAGES["ssd_chunk_state_kernel"], dims, strides, x=x, dt=dt, A=A, Bm=Bm,
+                states=states, decay=decay)
+    return states, decay
+
+
+def state_pass(states, decay, initial_state=None):
+    """``ssd_state_pass_kernel`` alone on a copy of ``states``: returns (the
+    state entering each chunk (B, n_c, H, P, N), the final state)."""
+    Bsz, nc, H, P, N = states.shape
+    init_ok = initial_state is None or (tuple(initial_state.shape) == (Bsz, H, P, N)
+                                        and initial_state.dtype == torch.float32
+                                        and initial_state.is_contiguous())
+    if (states.dtype != torch.float32 or tuple(decay.shape) != (Bsz, H, nc) or not init_ok
+            or not states.is_contiguous() or not decay.is_contiguous()):
+        raise ValueError("need contiguous fp32 states (B, n_c, H, P, N), decay (B, H, n_c) "
+                         "and initial_state (B, H, P, N)")
+    entering = states.clone()
+    fs = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=states.device)
+    # the pass needs only n_c: n_c positions in chunks of one
+    launch_bf16(STAGES["ssd_state_pass_kernel"], (Bsz, nc, H, P, N, 1), init=initial_state,
+                fs=fs, states=entering, decay=decay.float())
+    return entering, fs
+
+
+def chunk_scan(x, dt, A, Cm, cb, states_in, *, chunk: int = 128) -> torch.Tensor:
+    """``ssd_chunk_scan_kernel`` alone: y (B, S, H, P) bf16 from CB (B, n_c,
+    Tp, Tp) and the entering states (B, n_c, H, P, N), both fp32."""
+    dims, (x_rs, c_rs, _) = _bf16_inputs(x, dt, A, Cm, chunk)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    launch_bf16(STAGES["ssd_chunk_scan_kernel"], dims, (x_rs, 0, c_rs), x=x, dt=dt, A=A,
+                Cm=Cm, y=y, cb=cb.contiguous(), states=states_in.contiguous())
+    return y

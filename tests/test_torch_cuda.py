@@ -12,7 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 # tests/test_kernels.py's sweep plus the serving shapes of qwen2.5-3b:
@@ -161,6 +161,11 @@ SSD_SHAPES = [
     (1, 16, 8, 16, 16, 16),       # reduced mamba2-780m serving shape
     (4, 1024, 48, 64, 128, 128),  # full-width mamba2-780m prefill
     (2, 10, 2, 16, 16, 16),       # S shorter than the chunk
+    # the bf16 route's edges: a ragged last chunk of 72 rows, S < chunk with
+    # jamba's P = 128, a chunk (10) that is not a multiple of 16
+    (1, 200, 4, 64, 128, 128),
+    (2, 40, 2, 128, 128, 64),
+    (2, 45, 3, 32, 48, 10),
 ]
 
 
@@ -193,18 +198,104 @@ def test_ssd_kernel_matches_plain(cuda, dtype, B, S, H, P, N, chunk):
 
 
 @pytest.mark.requires_cuda
-def test_ssd_kernel_initial_state_and_strided_views(cuda):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_initial_state_and_strided_views(cuda, dtype):
     """initial_state continues a scan, and x/B/C may be slices of one fused
-    tensor, as in the Mamba2 block."""
+    tensor, as in the Mamba2 block (rows of 128 elements, B at 64: 16-byte
+    aligned for the bf16 route)."""
     B, S, H, P, N = 2, 48, 4, 16, 32
-    x, dt, A, Bm, Cm = _ssd_inputs(cuda, "float32", B, S, H, P, N)
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, dtype, B, S, H, P, N)
     fused = torch.cat([x.reshape(B, S, H * P), Bm, Cm], dim=-1)
     xv, Bv, Cv = torch.split(fused, [H * P, N, N], dim=-1)
     s0 = torch.randn((B, H, P, N), device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    before = ssd.launches
     y, fs = ops.ssd_scan(xv.reshape(B, S, H, P), dt, A, Bv, Cv, chunk=16, initial_state=s0)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
     yp, fsp = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=16, initial_state=s0, use_kernel=False)
-    np.testing.assert_allclose(y.cpu().numpy(), yp.cpu().numpy(), atol=1e-3, rtol=1e-3)
-    np.testing.assert_allclose(fs.cpu().numpy(), fsp.cpu().numpy(), atol=1e-3, rtol=1e-3)
+    tol = 3e-2 if dtype == "bfloat16" else 1e-3  # tests/test_kernels.py
+    np.testing.assert_allclose(y.float().cpu().numpy(), yp.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(fs.cpu().numpy(), fsp.cpu().numpy(), atol=tol, rtol=tol)
+
+
+# The bf16 route's four kernels, each against its plain piece on the same
+# inputs (bf16 shapes of SSD_SHAPES: ragged chunks, S < chunk, chunk 10).
+SSD_PIECE_SHAPES = [(2, 64, 4, 16, 16, 16), (2, 100, 3, 16, 32, 32), (1, 256, 8, 64, 128, 64),
+                    (2, 10, 2, 16, 16, 16), (1, 200, 4, 64, 128, 128),
+                    (2, 40, 2, 128, 128, 64), (2, 45, 3, 32, 48, 10)]
+
+
+def _block_lower(T):
+    """The (T, T) mask of the 16 x 16 blocks on or below the diagonal."""
+    blk = torch.arange(T) // 16
+    return blk[:, None] >= blk[None, :]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_PIECE_SHAPES)
+def test_ssd_chunk_cb_kernel_matches_plain(cuda, B, S, H, P, N, chunk):
+    """C B^T from exact bf16 operands with fp32 sums: only the order of the
+    sums differs, so fp32's 1e-4 (|CB| is ~sqrt(N) <= 12) holds."""
+    _, _, _, Bm, Cm = _ssd_inputs(cuda, "bfloat16", B, S, H, P, N)
+    cb = ssd.chunk_cb(Bm, Cm, chunk=chunk)
+    plain = ref.ssd_chunk_cb(Bm, Cm, chunk=chunk)
+    T = plain.shape[-1]
+    got = cb[..., :T, :T]
+    mask = _block_lower(T).to(cuda)
+    assert not cb[..., ~_block_lower(cb.shape[-1]).to(cuda)].any()  # never written
+    np.testing.assert_allclose(got[..., mask].cpu().numpy(), plain[..., mask].cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_PIECE_SHAPES)
+def test_ssd_chunk_state_kernel_matches_plain(cuda, B, S, H, P, N, chunk):
+    """The chunk states with x exact and dt w B as hi + lo bf16 (each
+    product within ~2^-16 of fp32's) and fp32 sums: fp32's 1e-3; the
+    decays exp(cs_last) come from the same cumsum in another order."""
+    x, dt, A, Bm, _ = _ssd_inputs(cuda, "bfloat16", B, S, H, P, N)
+    states, decay = ssd.chunk_state(x, dt, A, Bm, chunk=chunk)
+    ps, pd = ref.ssd_chunk_state(x, dt, A, Bm, chunk=chunk)
+    np.testing.assert_allclose(states.cpu().numpy(), ps.cpu().numpy(), atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(decay.cpu().numpy(), pd.permute(0, 2, 1).cpu().numpy(),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("with_init", [False, True])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_PIECE_SHAPES)
+def test_ssd_state_pass_kernel_matches_plain(cuda, B, S, H, P, N, chunk, with_init):
+    """The recurrence in fp32 with the plain version's two roundings per
+    chunk (s * decay, then + S_c): equal up to fp32 rounding."""
+    x, dt, A, Bm, _ = _ssd_inputs(cuda, "bfloat16", B, S, H, P, N)
+    ps, pd = ref.ssd_chunk_state(x, dt, A, Bm, chunk=chunk)
+    s0 = (torch.randn((B, H, P, N), device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(0)) if with_init else None)
+    entering, fs = ssd.state_pass(ps, pd.permute(0, 2, 1).contiguous(), s0)
+    pe, pfs = ref.ssd_state_pass(ps, pd, s0)
+    np.testing.assert_allclose(entering.cpu().numpy(), pe.cpu().numpy(), atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(fs.cpu().numpy(), pfs.cpu().numpy(), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_PIECE_SHAPES)
+def test_ssd_chunk_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk):
+    """y from the plain C B^T and entering states, with C and x exact and
+    the state and M as hi + lo bf16: the bf16 criterion of
+    tests/test_kernels.py (y is rounded to bf16)."""
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, "bfloat16", B, S, H, P, N)
+    cb = ref.ssd_chunk_cb(Bm, Cm, chunk=chunk)
+    ps, pd = ref.ssd_chunk_state(x, dt, A, Bm, chunk=chunk)
+    s0 = torch.randn((B, H, P, N), device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    entering, _ = ref.ssd_state_pass(ps, pd, s0)
+    T = cb.shape[-1]
+    pad = -T % 16
+    y = ssd.chunk_scan(x, dt, A, Cm, torch.nn.functional.pad(cb, (0, pad, 0, pad)), entering,
+                       chunk=chunk)
+    plain = ref.ssd_chunk_scan(x, dt, A, Cm, cb, entering, chunk=chunk)
+    np.testing.assert_allclose(y.float().cpu().numpy(), plain.float().cpu().numpy(),
+                               atol=3e-2, rtol=3e-2)
 
 
 @pytest.mark.requires_cuda
@@ -225,3 +316,13 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
         ops.ssd_scan(x, dt.bfloat16(), A, Bm, Cm)
     with pytest.raises(ValueError, match="shared memory"):
         ops.ssd_scan(*_ssd_inputs(cuda, "float32", 1, 512, 1, 128, 256), chunk=512)
+    # the bf16 route: P and N multiples of 16 up to 128, chunk up to 128,
+    # x/B/C 16-byte aligned
+    for shape, chunk in (((1, 32, 2, 24, 16), 16), ((1, 32, 2, 16, 256), 16),
+                         ((1, 256, 2, 16, 16), 256)):
+        with pytest.raises(ValueError, match="bf16 SSD scan"):
+            ops.ssd_scan(*_ssd_inputs(cuda, "bfloat16", *shape), chunk=chunk)
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, "bfloat16", 1, 32, 2, 16, 16)
+    shifted = torch.zeros(Bm.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.ssd_scan(x, dt, A, shifted.reshape(Bm.shape), Cm, chunk=16)
