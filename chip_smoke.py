@@ -25,13 +25,20 @@ Phases, one JSON line each:
 6. mamba_reduced the same as 4 for the reduced mamba2-780m;
 7. mamba_full    the same as 5 for the full-width mamba2-780m (48 layers,
                  d_model 1536, SSD heads 48 x 64, state 128, chunk 128, bf16);
-8. decode        the serving steps at full width: prefill 4 x 1024 then 32
+8. gateway       the Gateway API on the card: examples/torch_quickstart.py
+                 (register the reduced qwen2.5-3b, a cold and a warm invoke;
+                 the served output against the direct forward, device
+                 memory back to its base after shutdown), runtime<->sim
+                 parity over one trace, a DataLoadError that resolves
+                 within its load timeout, and a 2-node ClusterRuntime;
+9. decode        the serving steps at full width: prefill 4 x 1024 then 32
                  greedy decode steps, for qwen2.5-3b (K1 in the prefill, K2
                  in every step) and mamba2-780m (K3 in the prefill, the
                  plain recurrent step after); every logit checked against
                  the full forward of the same tokens, and the same check in
-                 fp32 at the reduced configs;
-9. the {"kernels": [...]} line, then the contract's last line.
+                 fp32 at the reduced configs; a decode step past the cache's
+                 length (its write dropped) against the CPU's logits;
+10. the {"kernels": [...]} line, then the contract's last line.
 
 Each served path sets every kernel's launch count to 0 just before it runs
 and reads the counts just after. Any failed check exits non-zero before the
@@ -41,6 +48,7 @@ and prints no result.
 from __future__ import annotations
 
 import gc
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -53,20 +61,25 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device; nothing was run")
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 
+from repro_torch.api import FunctionSpec, Gateway, TraceWorkload  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core import SageRuntime  # noqa: E402
 from repro_torch.core.functions import (  # noqa: E402
     _model_function, make_model_function, make_request,
 )
+from repro_torch.core.profiles import MB  # noqa: E402
+from repro_torch.core.telemetry import STAGES  # noqa: E402
+from repro_torch.data.database import Database  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
-from repro_torch.models import forward, init_cache, init_params  # noqa: E402
+from repro_torch.models import decode_step, forward, init_cache, init_params, prefill  # noqa: E402
 from repro_torch.serving import greedy_sample, make_decode_step, make_prefill_step  # noqa: E402
 
 KERNELS = {fa.NAME: fa, dec.NAME: dec, ssd.NAME: ssd}
@@ -623,6 +636,144 @@ def phase_full(phase, arch, kernel, fn_name):
     return launches[kernel.NAME]
 
 
+def load_example(name: str):
+    """A script of examples/ as a module (its ``main`` is what a user runs)."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ms(seconds) -> float:
+    return seconds * 1e3
+
+
+def phase_gateway():
+    """The Gateway API on the card, through the entry points a user calls:
+    examples/torch_quickstart.py's ``main(device="cuda")`` (the reduced
+    qwen2.5-3b, as the JAX package's gateway serves it), runtime<->sim
+    parity over one trace, a working set that never fits (DataLoadError
+    within the load timeout) and a 2-node cluster. Each path sets the
+    counts to 0 just before it and reads them just after; returns K1's
+    launches over the four. The direct forward that the served output is
+    held against is a comparison and is not counted."""
+    cfg = ARCHS["qwen2.5-3b"].reduced()
+    layers = cfg.num_layers
+    quickstart = load_example("torch_quickstart")
+    gc.collect()
+    torch.cuda.synchronize()
+    base_alloc = torch.cuda.memory_allocated()
+
+    # 1. the quickstart: cold + warm invoke, then shutdown
+    reset_counts()  # -- the quickstart path starts here
+    t0 = time.monotonic()
+    res = quickstart.main(device="cuda")
+    wall_s = time.monotonic() - t0
+    qs = counts()  # -- and ends here
+    cold, warm, db = res["cold"], res["warm"], res["gateway"].runtime.db
+    device = str(db.device)
+    errs = []
+    with torch.inference_mode():
+        weights = db.to_device(db.fetch("demo-llm/weights"))
+        for rec in (cold, warm):
+            toks = db.fetch(f"demo-llm/in/{rec.request_id}").cuda()
+            direct = forward(cfg, weights, {"tokens": toks})[0][:, -1, :8].float().cpu().numpy()
+            errs.append(float(np.abs(db.fetch(rec.result) - direct).max()))
+    sample = [float(x) for x in db.fetch(cold.result)[0]]
+    hits, usage = res["shared_hits"], res["memory"]
+    del weights, toks, db, res
+    gc.collect()
+    after_raw = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()  # per-thread cuBLAS workspaces
+    after = torch.cuda.memory_allocated()
+    emit({"phase": "gateway", "check": "quickstart", "arch": cfg.name, "device": device,
+          "time_scale": 0.2, "wall_s": wall_s,
+          "cold_e2e_ms": ms(cold.e2e), "warm_e2e_ms": ms(warm.e2e),
+          "cold_stages_ms": {k: ms(v) for k, v in cold.stages.items()},
+          "warm_stages_ms": {k: ms(v) for k, v in warm.stages.items()},
+          "warm_stage": [cold.warm_stage, warm.warm_stage], "shared_hits": hits,
+          "memory_usage_before_shutdown": usage, "launches": qs,
+          "direct_max_abs_err": errs, "served_sample": sample,
+          "memory_allocated_before": base_alloc, "memory_allocated_after_shutdown": after_raw,
+          "memory_allocated_after_cublas_workspaces_cleared": after})
+    check(device.startswith("cuda"), f"the gateway's database is on {device}")
+    check(cold.error is None and warm.error is None, f"{cold.error} {warm.error}")
+    check(cold.warm_stage is None and warm.warm_stage == 1,
+          f"warm_stage {cold.warm_stage}, {warm.warm_stage}")
+    check(hits >= 1, f"shared_hits {hits}")
+    check(qs[fa.NAME] == 2 * layers and sum(qs.values()) == qs[fa.NAME],
+          f"quickstart launches {qs}, want {2 * layers} of {fa.NAME}")
+    check(max(errs) == 0.0, f"served output differs from the direct forward: {errs}")
+    check(after <= base_alloc, f"device memory not freed: {after} > {base_alloc} bytes")
+
+    # 2. runtime<->sim parity over one trace (tests/test_torch_api.py's)
+    spec = FunctionSpec(name="par", deadline_s=30.0, arch="qwen2.5-3b", profile="seq2seq")
+    workload = TraceWorkload([(0.0, "par"), (2.5, "par"), (5.0, "par")])
+    gw_sim = Gateway(backend="sim", policy="sage")
+    gw_sim.register(spec)
+    tel_sim = gw_sim.replay(workload, until_pad=60.0)
+    t0 = time.monotonic()
+    reset_counts()  # -- the parity path starts here
+    with Gateway(backend="runtime", policy="sage", time_scale=0.05, device="cuda") as gw:
+        gw.register(spec)
+        tel_rt = gw.replay(workload, pace=0.4)  # arrivals 1 s apart on the wall clock
+    par = counts()  # -- and ends here
+    wall_s = time.monotonic() - t0
+    recs = {name: sorted(tel.records, key=lambda r: r.arrival_t)
+            for name, tel in (("sim", tel_sim), ("runtime", tel_rt))}
+    cold_flags = {name: [r.warm_stage is None for r in rs] for name, rs in recs.items()}
+    emit({"phase": "gateway", "check": "parity", "wall_s": wall_s, "launches": par,
+          "cold": cold_flags,
+          "e2e_ms": {name: [ms(r.e2e) for r in rs] for name, rs in recs.items()},
+          "errors": {name: [r.error for r in rs] for name, rs in recs.items()}})
+    for name, rs in recs.items():
+        check(len(rs) == 3 and all(r.error is None for r in rs), f"{name}: {rs}")
+        check(all(set(r.stages) == set(STAGES) for r in rs), f"{name}: stage keys")
+        check(all(r.deadline_s == 30.0 for r in rs), f"{name}: deadlines")
+    check(cold_flags["sim"] == cold_flags["runtime"] == [True, False, False],
+          f"warm classification {cold_flags}")
+    check(par[fa.NAME] == 3 * layers, f"parity launches {par}")
+
+    # 3. a working set that never fits: DataLoadError, within the load timeout
+    load_timeout_s = 0.5
+    reset_counts()  # -- the failing path starts here
+    with Gateway(backend="runtime", policy="sage", device_capacity=600 * MB,
+                 time_scale=0.02, load_timeout_s=load_timeout_s, device="cuda") as gw:
+        gw.register(FunctionSpec(name="big", arch="qwen2.5-3b", profile="bert"))
+        t0 = time.monotonic()
+        rec = gw.invoke_async("big").wait(timeout=60.0, strict=False)
+        fail_s = time.monotonic() - t0
+    failing = counts()  # -- and ends here
+    emit({"phase": "gateway", "check": "data_load_error", "device_capacity": 600 * MB,
+          "load_timeout_s": load_timeout_s, "resolved_after_s": fail_s, "launches": failing,
+          "error": rec.error,
+          "error_class": rec.error_class})
+    check(rec.error is not None and "DataLoadError" in rec.error, f"error {rec.error!r}")
+    check(fail_s <= load_timeout_s + 1.0, f"resolved after {fail_s} s")
+
+    # 4. a 2-node ClusterRuntime replaying 4 arrivals
+    reset_counts()  # -- the cluster path starts here
+    t0 = time.monotonic()
+    with Gateway(backend="runtime", policy="sage", n_nodes=2, time_scale=0.02, seed=0,
+                 device="cuda") as gw:
+        gw.register(FunctionSpec(name="f", arch="qwen2.5-3b", profile="seq2seq"))
+        tel = gw.replay(TraceWorkload([(0.02 * i, "f") for i in range(4)]))
+        devices = sorted({str(n.db.device) for n in gw.runtime.nodes})
+        found = gw.report().find(tel.records[0].request_id) is tel.records[0]
+    clu = counts()  # -- and ends here
+    emit({"phase": "gateway", "check": "cluster", "n_nodes": 2, "devices": devices,
+          "wall_s": time.monotonic() - t0, "launches": clu,
+          "nodes": [r.node_id for r in tel.records], "e2e_ms": [ms(r.e2e) for r in tel.records],
+          "errors": tel.error_count()})
+    check(len(tel.records) == 4 and tel.error_count() == 0, f"cluster records {tel.records}")
+    check(found, "the merged cluster view lost its lookup index")
+    check(all(d.startswith("cuda") for d in devices), f"cluster nodes on {devices}")
+    check(clu[fa.NAME] == 4 * layers, f"cluster launches {clu}")
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    return sum(c[fa.NAME] for c in (qs, par, failing, clu))
+
+
 def profiled(fn):
     """Run ``fn`` once under torch.profiler; returns (its result, the
     device-busy ms summed over kernels and copies, the host wall ms of the
@@ -767,6 +918,42 @@ def phase_decode(arch, kernel_paths):
         kernel_paths[name]["decode"] += dec_counts[name]
 
 
+def decode_past_cache():
+    """A decode step at a position past the cache's length (reduced
+    qwen2.5-3b, fp32, max_len 4): the write is dropped on the card with no
+    device-side assert, the logits are the CPU path's within 3e-5 and the
+    cache is unchanged; a normal step afterwards agrees too. A comparison,
+    not a path: its launches are not counted."""
+    cfg = ARCHS["qwen2.5-3b"].reduced()
+    B, max_len = 2, 4
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    on_card = Database(device="cuda").to_device(params)
+    rng = np.random.default_rng(2)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, max_len), dtype=np.int32))
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1), dtype=np.int32))
+    with torch.inference_mode():
+        _, cpu_cache, _ = prefill(cfg, params, {"tokens": prompt},
+                                  init_cache(cfg, B, max_len, device="cpu"))
+        _, cache, _ = prefill(cfg, on_card, {"tokens": prompt.cuda()},
+                              init_cache(cfg, B, max_len, device="cuda"))
+        before = {k: {n: t.clone() for n, t in e.items()} for k, e in cache.items()}
+        errs = []
+        for pos in ([max_len] * B, [max_len - 1, 1]):  # dropped, then written
+            pos = torch.tensor(pos, dtype=torch.int32)
+            want, _ = decode_step(cfg, params, nxt, pos, cpu_cache)
+            got, _ = decode_step(cfg, on_card, nxt.cuda(), pos.cuda(), cache)
+            torch.cuda.synchronize()
+            errs.append((got.cpu() - want).abs().max().item())
+            if len(errs) == 1:
+                unchanged = all(torch.equal(t, before[k][n])
+                                for k, e in cache.items() for n, t in e.items())
+    emit({"phase": "decode", "check": "past_cache", "arch": cfg.name, "max_len": max_len,
+          "positions": [[max_len] * B, [max_len - 1, 1]], "max_abs_err_vs_cpu": errs,
+          "tol": 3e-5, "cache_unchanged_by_dropped_write": unchanged})
+    check(unchanged, "a decode step past the cache wrote into it")
+    check(max(errs) <= 3e-5, f"decode past the cache differs from the CPU: {errs}")
+
+
 def main():
     t_start = time.monotonic()
     smi = phase_card()
@@ -774,13 +961,15 @@ def main():
     timings = {fa.NAME: phase_kernels(), dec.NAME: phase_kernels_decode(),
                ssd.NAME: phase_kernels_ssd()}
     paths = {name: dict.fromkeys(("reduced", "full_width", "mamba_reduced", "mamba_full",
-                                  "prefill", "decode"), 0) for name in KERNELS}
+                                  "gateway", "prefill", "decode"), 0) for name in KERNELS}
     paths[fa.NAME]["reduced"] = phase_reduced("reduced", "qwen2.5-3b", fa)
     paths[fa.NAME]["full_width"] = phase_full("full", "qwen2.5-3b", fa, "qwen")
     paths[ssd.NAME]["mamba_reduced"] = phase_reduced("mamba_reduced", "mamba2-780m", ssd)
     paths[ssd.NAME]["mamba_full"] = phase_full("mamba_full", "mamba2-780m", ssd, "mamba")
+    paths[fa.NAME]["gateway"] = phase_gateway()
     phase_decode("qwen2.5-3b", paths)
     phase_decode("mamba2-780m", paths)
+    decode_past_cache()
     main_path = {fa.NAME: "full_width", dec.NAME: "decode", ssd.NAME: "mamba_full"}
     replaces = {
         fa.NAME: "src/repro/kernels/flash_attention.py:37",
@@ -789,6 +978,7 @@ def main():
     }
     for name in KERNELS:
         check(paths[name][main_path[name]] > 0, f"{name} never launched on its path")
+    check(paths[fa.NAME]["gateway"] > 0, f"{fa.NAME} never launched through the Gateway")
     emit({"phase": "wall", "seconds": time.monotonic() - t_start})
     emit({"kernels": [{
         "name": name, "route": "cuda",

@@ -10,8 +10,7 @@ This is the *real* threaded runtime: context creation builds (once per
 process) and loads the hand-written CUDA kernels, data movement is an
 actual ``Tensor.to(device)`` (with the fair-share brokers modeling
 A100-scale transfer times), compute is the actual model forward. The
-virtual-time twin for trace-scale experiments is ``core.simulator`` in the
-JAX package; it is not ported yet.
+virtual-time twin for trace-scale experiments is ``core.simulator``.
 """
 from __future__ import annotations
 

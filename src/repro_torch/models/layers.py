@@ -184,15 +184,21 @@ def attention_decode(
 
     The JAX version scatters into a new cache (``.at[bidx, pos].set``); here
     the write goes into ``k_cache``/``v_cache`` IN PLACE (advanced-index
-    assignment) and the same tensors are returned. ``positions`` stays on
-    the device: nothing here waits for the card."""
+    assignment) and the same tensors are returned. A position at or past
+    the cache's length L drops its write, as the JAX scatter does: the row
+    at L-1 is written back with its own value, so no index leaves the cache
+    (on the card an out-of-range index would be a device-side assert).
+    ``positions`` stays on the device: nothing here waits for the card."""
     B = x.shape[0]
     q, k, v = _project_qkv(cfg, p, x, x)
     q, k = _rope_qk(cfg, q, k, positions[:, None])
     bidx = torch.arange(B, device=x.device)
+    L = k_cache.shape[1]
     pos = positions.long()
-    k_cache[bidx, pos] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, pos] = v[:, 0].to(v_cache.dtype)
+    keep = (pos < L)[:, None, None]
+    pos = pos.clamp(max=L - 1)
+    k_cache[bidx, pos] = torch.where(keep, k[:, 0].to(k_cache.dtype), k_cache[bidx, pos])
+    v_cache[bidx, pos] = torch.where(keep, v[:, 0].to(v_cache.dtype), v_cache[bidx, pos])
     lengths = (positions + 1).to(torch.int32)
     out = ops.decode_attention(q, k_cache, v_cache, lengths)
     return _out_proj(cfg, p, out), k_cache, v_cache

@@ -116,8 +116,14 @@ def mamba_forward(
 ):
     """Full-sequence Mamba2 block (forward / prefill). With ``return_state``
     also returns the final SSM state (B, H, P, N) fp32 and the pre-conv
-    tail (B, W-1, conv_dim), the decode conv state."""
+    tail (B, W-1, conv_dim), the decode conv state; that needs at least
+    W-1 tokens, and a shorter sequence raises ``ValueError`` (the JAX
+    package stores the short tail and its next decode step raises)."""
     B, S, _ = xin.shape
+    if return_state and S < cfg.ssm_conv - 1:
+        raise ValueError(
+            f"a Mamba2 prefill of {S} tokens is shorter than the conv state's "
+            f"{cfg.ssm_conv - 1} rows (ssm_conv - 1)")
     di, ns, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
     ct = cdtype(cfg)
     zxbcdt = xin.to(ct) @ p["in_proj"].to(ct)

@@ -326,3 +326,82 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
     shifted = torch.zeros(Bm.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:]
     with pytest.raises(ValueError, match="16-byte"):
         ops.ssd_scan(x, dt, A, shifted.reshape(Bm.shape), Cm, chunk=16)
+
+
+def _reduced_qwen(device, seed=1):
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+
+    cfg = ARCHS["qwen2.5-3b"].reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    return cfg, params, {k: _to(v, device) for k, v in params.items()}
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.requires_cuda
+def test_decode_past_the_cache_drops_the_write_on_the_card(cuda):
+    """decode_step at position L (cache full) on the card: no device-side
+    assert, the write is dropped (the cache is unchanged), the logits are
+    the CPU path's within 3e-5 (fp32), and a normal step afterwards still
+    runs and agrees, so the CUDA context is not poisoned."""
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    cfg, params, cparams = _reduced_qwen(cuda)
+    B, max_len = 2, 4
+    rng = np.random.default_rng(2)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, max_len), dtype=np.int32))
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1), dtype=np.int32))
+    caches = {}
+    for dev, p in (("cpu", params), ("card", cparams)):
+        d = cuda if dev == "card" else dev
+        _, caches[dev], _ = prefill(cfg, p, {"tokens": prompt.to(d)},
+                                    init_cache(cfg, B, max_len, device=d))
+    before = {k: {n: t.clone() for n, t in e.items()} for k, e in caches["card"].items()}
+    pos = torch.full((B,), max_len, dtype=torch.int32)
+    want, _ = decode_step(cfg, params, nxt, pos, caches["cpu"])
+    got, _ = decode_step(cfg, cparams, nxt.to(cuda), pos.to(cuda), caches["card"])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=3e-5, rtol=0)
+    for key, entry in caches["card"].items():
+        for name, leaf in entry.items():
+            assert torch.equal(leaf, before[key][name]), (key, name)
+    pos = torch.tensor([max_len - 1, 1], dtype=torch.int32)  # in range: written
+    want, _ = decode_step(cfg, params, nxt, pos, caches["cpu"])
+    got, _ = decode_step(cfg, cparams, nxt.to(cuda), pos.to(cuda), caches["card"])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=3e-5, rtol=0)
+    np.testing.assert_allclose(caches["card"]["sub0"]["k"].cpu().numpy(),
+                               caches["cpu"]["sub0"]["k"].numpy(), atol=3e-5, rtol=0)
+    assert not torch.equal(caches["card"]["sub0"]["k"], before["sub0"]["k"])
+
+
+@pytest.mark.requires_cuda
+def test_gateway_serves_on_the_card(cuda):
+    """Gateway(backend="runtime", device="cuda"): a cold and a warm invoke
+    of the reduced qwen2.5-3b launch flash attention once per layer each,
+    and the served output equals the direct forward on the card."""
+    from repro_torch.api import FunctionSpec, Gateway
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import forward
+
+    cfg = ARCHS["qwen2.5-3b"].reduced()
+    with Gateway(backend="runtime", policy="sage", time_scale=0.02, device="cuda") as gw:
+        gw.register(FunctionSpec(name="demo", arch="qwen2.5-3b", profile="resnet50"))
+        before = fa.launches
+        cold, warm = gw.invoke("demo", seed=0), gw.invoke("demo", seed=1)
+        assert fa.launches - before == 2 * cfg.num_layers
+        db = gw.runtime.db
+        assert db.device.type == "cuda"
+        assert cold.warm_stage is None and warm.warm_stage == 1
+        assert gw.runtime.daemon.stats["shared_hits"] >= 1
+        weights = db.to_device(db.fetch("demo/weights"))
+        with torch.inference_mode():
+            for rec in (cold, warm):
+                toks = db.fetch(f"demo/in/{rec.request_id}").to(cuda)
+                direct = forward(cfg, weights, {"tokens": toks})[0][:, -1, :8].float().cpu()
+                np.testing.assert_array_equal(db.fetch(rec.result), direct.numpy())

@@ -45,7 +45,8 @@ def test_no_jax_or_reference_import(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch.core, repro_torch.core.functions, "
             "repro_torch.kernels.ops, repro_torch.models.convert, "
-            "repro_torch.models.mamba2, repro_torch.serving; "
+            "repro_torch.models.mamba2, repro_torch.serving, repro_torch.api, "
+            "repro_torch.core.simulator, repro_torch.core.faults; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

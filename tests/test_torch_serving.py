@@ -109,3 +109,64 @@ def test_greedy_sample_is_int32_argmax():
     got = greedy_sample(torch.from_numpy(logits))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(jax_greedy_sample(jnp.asarray(logits))))
+
+
+def _ref_and_port_params(arch, seed=1):
+    ref_cfg, cfg = REF_ARCHS[arch].reduced(), ARCHS[arch].reduced()
+    jparams = jax_init_params(ref_cfg, jax.random.PRNGKey(seed))
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    return ref_cfg, cfg, jparams, params
+
+
+@pytest.mark.parametrize("prompt_len", [1, 2, 3, 4])
+def test_short_mamba_prefill_raises_or_matches_jax(prompt_len):
+    """A Mamba2 prefill shorter than the conv state (ssm_conv - 1 rows)
+    raises ValueError in the port; the JAX package stores the short tail
+    and its next decode step raises. From ssm_conv - 1 tokens on, the conv
+    cache and the next decode step's logits agree within 1e-4."""
+    ref_cfg, cfg, jparams, params = _ref_and_port_params("mamba2-780m")
+    W1 = cfg.ssm_conv - 1
+    assert W1 == 3
+    prompt = _tokens(cfg)[:, :prompt_len]
+    nxt = _tokens(cfg, seed=5)[:, :1]
+    pos = np.full((B,), prompt_len, np.int32)
+    cache = init_cache(cfg, B, 8, device="cpu")
+    jcache = jax_init_cache(ref_cfg, B, 8)
+    if prompt_len < W1:
+        with pytest.raises(ValueError, match=rf"{prompt_len} tokens.*{W1} rows"):
+            prefill(cfg, params, {"tokens": torch.from_numpy(prompt)}, cache)
+        with pytest.raises(ValueError):
+            _, jcache, _ = jax_prefill(ref_cfg, jparams, {"tokens": jnp.asarray(prompt)},
+                                       jcache)
+            jax_decode_step(ref_cfg, jparams, jnp.asarray(nxt), jnp.asarray(pos), jcache)
+        return
+    _, cache, _ = prefill(cfg, params, {"tokens": torch.from_numpy(prompt)}, cache)
+    _, jcache, _ = jax_prefill(ref_cfg, jparams, {"tokens": jnp.asarray(prompt)}, jcache)
+    np.testing.assert_allclose(cache["sub0"]["conv"].float().numpy(),
+                               np.asarray(jcache["sub0"]["conv"], np.float32), atol=1e-4)
+    lg, _ = decode_step(cfg, params, torch.from_numpy(nxt), torch.from_numpy(pos), cache)
+    jlg, _ = jax_decode_step(ref_cfg, jparams, jnp.asarray(nxt), jnp.asarray(pos), jcache)
+    np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), atol=1e-4)
+
+
+def test_decode_past_the_cache_drops_the_write():
+    """decode_step at position L (cache full) drops its k/v write, as the
+    JAX scatter does, and attends over the whole cache: the logits are the
+    JAX package's within 3e-5 (fp32) and the cache is unchanged."""
+    ref_cfg, cfg, jparams, params = _ref_and_port_params("qwen2.5-3b")
+    max_len = 4
+    prompt = _tokens(cfg)[:, :max_len]
+    nxt = _tokens(cfg, seed=5)[:, :1]
+    pos = np.full((B,), max_len, np.int32)
+    _, cache, _ = prefill(cfg, params, {"tokens": torch.from_numpy(prompt)},
+                          init_cache(cfg, B, max_len, device="cpu"))
+    _, jcache, _ = jax_prefill(ref_cfg, jparams, {"tokens": jnp.asarray(prompt)},
+                               jax_init_cache(ref_cfg, B, max_len))
+    before = {k: {n: t.clone() for n, t in e.items()} for k, e in cache.items()}
+    lg, cache = decode_step(cfg, params, torch.from_numpy(nxt), torch.from_numpy(pos), cache)
+    jlg, _ = jax_decode_step(ref_cfg, jparams, jnp.asarray(nxt), jnp.asarray(pos), jcache)
+    assert lg.shape == (B, cfg.vocab_size)
+    np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), atol=3e-5)
+    for key, entry in cache.items():
+        for name, leaf in entry.items():
+            assert torch.equal(leaf, before[key][name]), (key, name)
