@@ -33,12 +33,30 @@ Phases, one JSON line each:
                  within its load timeout, and a 2-node ClusterRuntime;
 9. decode        the serving steps at full width: prefill 4 x 1024 then 32
                  greedy decode steps, for qwen2.5-3b (K1 in the prefill, K2
-                 in every step) and mamba2-780m (K3 in the prefill, the
-                 plain recurrent step after); every logit checked against
-                 the full forward of the same tokens, and the same check in
-                 fp32 at the reduced configs; a decode step past the cache's
-                 length (its write dropped) against the CPU's logits;
-10. the {"kernels": [...]} line, then the contract's last line.
+                 in every step), mamba2-780m (K3 in the prefill, the plain
+                 recurrent step after) and olmoe-1b-7b (K1 and the MoE FFN;
+                 drop-free, see DROP_FREE_CAPACITY; plus a profiled prefill
+                 at the served capacity that splits the MoE FFN's time by
+                 einsum); every logit checked
+                 against the full forward of the same tokens, and the same
+                 check in fp32 at the reduced configs; a decode step past
+                 the cache's length (its write dropped) against the CPU's
+                 logits;
+10. moe_full     the same as 5 for the full-width olmoe-1b-7b (16 layers,
+                 d_model 2048, 16 MHA heads of 128, 64 experts top-8 of
+                 d_ff 1024, bf16; 6.9 B parameters);
+11. whisper_decode  whisper-small at full width (12 + 12 layers, d_model
+                 768, bf16) through the serving steps: 30 s of audio as
+                 1500 encoder frames from seed 0, a 4 x 128 decoder prompt,
+                 32 greedy steps; K1 runs the encoder, the decoder's causal
+                 self attention and its cross attention (Sq 128, Sk 1500),
+                 K2 the self and the cross decode; held against the full
+                 forward as in 9;
+12. zoo_reduced  the reduced olmoe, llama4, jamba and qwen2-vl served through
+                 SageRuntime in fp32 (K1, and K3 for jamba) against the CPU
+                 forward, and the reduced whisper's prefill and decode steps
+                 on the card against the CPU's;
+13. the {"kernels": [...]} line, then the contract's last line.
 
 Each served path sets every kernel's launch count to 0 just before it runs
 and reads the counts just after. Any failed check exits non-zero before the
@@ -47,6 +65,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import importlib.util
 import json
@@ -111,6 +130,15 @@ REF_SHAPES = [  # tests/test_kernels.py sweep: B, Sq, Sk, Hq, Hkv, Dh, causal
 ]
 REDUCED_SHAPE = (1, 16, 16, 4, 2, 16, True)        # qwen2.5-3b reduced, fp32
 FULL_SHAPE = (4, 1024, 1024, 16, 2, 128, True)     # qwen2.5-3b full, bf16
+# the other served full-width shapes, all MHA: olmoe's prefill; whisper's
+# encoder (1500 frames: a ragged last key tile), decoder prompt and cross
+# attention
+ZOO_SHAPES = [
+    (4, 1024, 1024, 16, 16, 128, True),
+    (4, 1500, 1500, 12, 12, 64, False),
+    (4, 128, 128, 12, 12, 64, True),
+    (4, 128, 1500, 12, 12, 64, False),
+]
 FULL_BATCH, FULL_SEQ = 4, 1024
 DECODE_STEPS = 32
 DECODE_REF_SHAPES = [  # tests/test_kernels.py decode sweep: B, L, Hq, Hkv, Dh
@@ -129,6 +157,18 @@ DECODE_EDGE_CASES = [
 DECODE_REDUCED_SHAPE = (2, 28, 4, 2, 16)           # reduced decode check, fp32
 DECODE_FULL_SHAPE = (4, 1056, 16, 2, 128)          # qwen2.5-3b decode, bf16
 DECODE_FULL_LENGTHS = [1025, 1035, 1046, 1056]
+DECODE_ZOO_CASES = [  # olmoe self, whisper self and whisper cross (every length L)
+    ((4, 1056, 16, 16, 128), DECODE_FULL_LENGTHS),
+    ((4, 160, 12, 12, 64), [129, 139, 150, 160]),
+    ((4, 1500, 12, 12, 64), [1500] * 4),
+]
+WHISPER_PROMPT, WHISPER_FRAMES = 128, 1500  # decoder tokens; 30 s of audio
+# olmoe's prefill routes 1024 tokens with C = 160 slots per expert and drops
+# the overflow; its decode step routes B = 4 tokens with C = max(K, ...) = 8
+# >= B and drops none (llama4's and jamba's can: C < B there). So
+# a decode held against the full forward runs a drop-free copy of the config
+# (tests/test_models.py does the same); the served phases keep 1.25
+DROP_FREE_CAPACITY = 8.0
 SSD_REF_SHAPES = [  # tests/test_kernels.py SSD sweep: B, S, H, P, N, chunk
     (2, 64, 4, 16, 16, 16),
     (1, 128, 2, 32, 64, 32),
@@ -326,6 +366,7 @@ def phase_kernels():
     cases = [(s, d) for s in REF_SHAPES for d in (torch.float32, torch.bfloat16)]
     cases += [(REDUCED_SHAPE, torch.float32), (REDUCED_SHAPE, torch.bfloat16),
               (FULL_SHAPE, torch.bfloat16)]
+    cases += [(s, d) for s in ZOO_SHAPES for d in (torch.float32, torch.bfloat16)]
     worst = 0.0
     for shape, dtype in cases:
         q, k, v = inputs(shape, dtype)
@@ -374,6 +415,8 @@ def phase_kernels_decode():
               for d in (torch.float32, torch.bfloat16)]
     cases += [(DECODE_REDUCED_SHAPE, torch.float32, None),
               (DECODE_FULL_SHAPE, torch.bfloat16, DECODE_FULL_LENGTHS)]
+    cases += [(s, d, lens) for s, lens in DECODE_ZOO_CASES
+              for d in (torch.float32, torch.bfloat16)]
     for shape, dtype, lengths in cases:
         q, k, v, lens = decode_inputs(shape, dtype, lengths)
         n_split = dec.num_splits(shape[0], shape[3], shape[1], sms)
@@ -515,9 +558,18 @@ def record(r) -> dict:
             "stages_s": dict(r.stages), "error": r.error}
 
 
-def phase_reduced(phase, arch, kernel):
+def forward_launches(cfg) -> dict:
+    """Kernel launches of one forward of ``cfg``: K1 once per attention
+    layer (and per encoder layer and cross attention), K3 once per Mamba2
+    layer."""
+    enc = cfg.encoder_layers + cfg.num_layers if cfg.is_encoder_decoder else 0
+    return {fa.NAME: cfg.num_attn_layers + enc, dec.NAME: 0, ssd.NAME: cfg.num_mamba_layers}
+
+
+def phase_reduced(phase, arch):
     """SageRuntime serves the reduced ``arch`` cold -> warm -> warm; every
-    request launches ``kernel`` once per layer and nothing else."""
+    request launches each kernel as ``forward_launches`` says and nothing
+    else. Returns the launches by kernel."""
     rt = SageRuntime("sage", time_scale=0.02, exit_ttl=5.0, device="cuda")
     rt.sage_init()
     fn = make_model_function(rt.db, "f", arch=arch, seed=3)
@@ -526,9 +578,9 @@ def phase_reduced(phase, arch, kernel):
     served, per_request = [], []
     reset_counts()  # -- the main path (reduced) starts here
     for req in reqs:
-        before = kernel.launches
+        before = counts()
         served.append(rt.db.fetch(rt.sage_run(req)))
-        per_request.append(kernel.launches - before)
+        per_request.append({n: c - before[n] for n, c in counts().items()})
     launches = counts()  # -- and ends here
     recs = rt.telemetry.records
     warm = [r.warm_stage for r in recs]
@@ -542,25 +594,24 @@ def phase_reduced(phase, arch, kernel):
         toks = rt.db.fetch(req.in_data[1].key)
         plain, _ = forward(cfg, weights, {"tokens": toks})  # CPU: plain versions
         errs.append(float(np.abs(out - plain[:, -1, :8].numpy()).max()))
-    layers = cfg.num_layers
+    want = forward_launches(cfg)
     emit({"phase": phase, "arch": cfg.name, "warm_stage": warm,
           "shared_hits": stats["shared_hits"], "loads": stats["loads"],
           "launches": launches, "launches_per_request": per_request,
           "max_abs_err_vs_cpu_plain": max(errs), "tol": 1e-4,
           "requests": [record(r) for r in recs], "usage_after": usage})
-    check(warm == [None, 1, 1], f"warm_stage {warm}")
-    check(stats["shared_hits"] >= 1, "no shared hit")
-    check(per_request == [layers] * 3, f"launches per request {per_request}")
-    check(sum(launches.values()) == launches[kernel.NAME], f"other kernels ran: {launches}")
-    check(max(errs) <= 1e-4, f"served logits differ from the CPU forward: {errs}")
-    check(usage["device_used"] == usage["host_used"] == 0, f"teardown {usage}")
-    return launches[kernel.NAME]
+    check(warm == [None, 1, 1], f"{arch}: warm_stage {warm}")
+    check(stats["shared_hits"] >= 1, f"{arch}: no shared hit")
+    check(per_request == [want] * 3, f"{arch}: launches per request {per_request} != {want}")
+    check(max(errs) <= 1e-4, f"{arch}: served logits differ from the CPU forward: {errs}")
+    check(usage["device_used"] == usage["host_used"] == 0, f"{arch}: teardown {usage}")
+    return launches
 
 
-def phase_full(phase, arch, kernel, fn_name):
+def phase_full(phase, arch, fn_name):
     """SageRuntime serves the unreduced ``arch`` (published widths and
     depth, bf16, random weights from seed 0), batch 4 x 1024: cold, warm,
-    then a burst of 4 concurrent requests."""
+    then a burst of 4 concurrent requests. Returns the launches by kernel."""
     cfg = ARCHS[arch]
     check(cfg.param_dtype == cfg.compute_dtype == "bfloat16", "full width is bf16")
     gc.collect()
@@ -582,7 +633,7 @@ def phase_full(phase, arch, kernel, fn_name):
     reset_counts()  # -- the main path (full width) starts here
     t0 = time.monotonic()
     out_keys = [rt.sage_run(reqs[0])]
-    cold_launches = kernel.launches
+    cold_launches = counts()
     out_keys.append(rt.sage_run(reqs[1]))
     futs = [rt.submit(r) for r in reqs[2:]]
     out_keys += [f.result(timeout=600) for f in futs]
@@ -610,7 +661,7 @@ def phase_full(phase, arch, kernel, fn_name):
     # this card) for the life of the process; those are not the port's
     torch._C._cuda_clearCublasWorkspaces()
     after = torch.cuda.memory_allocated()
-    n_layers = cfg.num_layers
+    want = forward_launches(cfg)
     emit({"phase": phase, "arch": cfg.name, "params": cfg.param_count(),
           "ro_bytes": ro_bytes, "batch": FULL_BATCH, "seq": FULL_SEQ,
           "init_s": init_s, "time_scale": time_scale, "load_timeout_s": load_timeout_s,
@@ -622,18 +673,18 @@ def phase_full(phase, arch, kernel, fn_name):
           "memory_allocated_after_cublas_workspaces_cleared": after, "usage_after": usage,
           "direct_max_abs_err": direct_err,
           "served_sample": [float(x) for x in served[0][0]]})
-    check(all(r.error is None for r in recs), "a request failed")
-    check(len(recs) == 6 and recs[0].warm_stage is None, "cold request")
-    check(cold_launches == n_layers, f"cold request launched {cold_launches}")
-    check(launches[kernel.NAME] == 6 * n_layers, f"{launches} launches for 6 requests")
-    check(sum(launches.values()) == launches[kernel.NAME], f"other kernels ran: {launches}")
-    check(stats["shared_hits"] >= 5, f"shared_hits {stats['shared_hits']}")
+    check(all(r.error is None for r in recs), f"{arch}: a request failed")
+    check(len(recs) == 6 and recs[0].warm_stage is None, f"{arch}: cold request")
+    check(cold_launches == want, f"{arch}: cold request launched {cold_launches} != {want}")
+    check(launches == {n: 6 * c for n, c in want.items()},
+          f"{arch}: {launches} launches for 6 requests, want 6 x {want}")
+    check(stats["shared_hits"] >= 5, f"{arch}: shared_hits {stats['shared_hits']}")
     check(all(np.isfinite(s).all() and s.shape == (FULL_BATCH, 8) for s in served),
-          "served logits not finite")
-    check(direct_err <= 1e-3, f"served differs from the direct forward: {direct_err}")
-    check(usage["device_used"] == usage["host_used"] == 0, f"teardown {usage}")
-    check(after <= base_alloc, f"device memory not freed: {after} > {base_alloc} bytes")
-    return launches[kernel.NAME]
+          f"{arch}: served logits not finite")
+    check(direct_err <= 1e-3, f"{arch}: served differs from the direct forward: {direct_err}")
+    check(usage["device_used"] == usage["host_used"] == 0, f"{arch}: teardown {usage}")
+    check(after <= base_alloc, f"{arch}: device memory not freed: {after} > {base_alloc} bytes")
+    return launches
 
 
 def load_example(name: str):
@@ -774,15 +825,18 @@ def phase_gateway():
     return sum(c[fa.NAME] for c in (qs, par, failing, clu))
 
 
-def profiled(fn):
+def profiled(fn, by_op=False):
     """Run ``fn`` once under torch.profiler; returns (its result, the
     device-busy ms summed over kernels and copies, the host wall ms of the
-    profiled run and the six largest device-time entries)."""
+    profiled run and the six largest device-time entries; with ``by_op``
+    also the operators of ``BY_OP`` by input shapes, with the device time
+    of the kernels each launched)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=by_op) as prof:
         t0 = time.monotonic()
         out = fn()
         torch.cuda.synchronize()
@@ -797,31 +851,45 @@ def profiled(fn):
         for tag in PORT_KERNEL_NAMES:
             if tag in e.key:
                 ours[tag] = ours.get(tag, 0.0) + e.self_device_time_total / 1e3
-    return out, {"device_busy_ms": busy_ms, "profiled_wall_ms": wall_ms,
-                 "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top],
-                 "port_kernels_ms": ours}
+    res = {"device_busy_ms": busy_ms, "profiled_wall_ms": wall_ms,
+           "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top],
+           "port_kernels_ms": ours}
+    if by_op:
+        rows = [[e.key, str(e.input_shapes)[:200], e.device_time_total / 1e3, e.count]
+                for e in prof.key_averages(group_by_input_shape=True) if e.key in BY_OP]
+        res["by_op"] = sorted(rows, key=lambda r: -r[2])[:16]
+    return out, res
 
 
-def generate(cfg, params, prompt, steps, profile_it=False):
+# the operators whose device time the MoE breakdown reads, by input shapes:
+# the batched products under the FFN's einsums (dispatch, combine, the
+# expert GEMMs, the one-hot products), the dense projections (``@``), the
+# router's sort and the slot count's scan
+BY_OP = ("aten::bmm", "aten::matmul", "aten::sort", "aten::cumsum")
+
+
+def generate(cfg, params, prompt, steps, profile_it=False, extra=None, enc_len=0):
     """Prefill then ``steps`` greedy decode steps through the serving step
-    factories. Returns (the logits of the prefill and of every step, the
-    fed-back tokens, per-step ms, prefill ms, launch counts of the prefill
-    and of the decode loop, and with ``profile_it`` a profiler breakdown of
-    a repeated prefill (it rewrites the same cache entries) and of the last
-    step)."""
+    factories (``extra``: batch entries besides the tokens, such as
+    whisper's encoder embeddings, whose length is ``enc_len``). Returns
+    (the logits of the prefill and of every step, the fed-back tokens,
+    per-step ms, prefill ms, launch counts of the prefill and of the decode
+    loop, and with ``profile_it`` a profiler breakdown of a repeated
+    prefill (it rewrites the same cache entries) and of the last step)."""
     B, S = prompt.shape
+    batch = {"tokens": prompt, **(extra or {})}
     prefill_step, decode = make_prefill_step(cfg), make_decode_step(cfg)
-    cache = init_cache(cfg, B, S + steps)
+    cache = init_cache(cfg, B, S + steps, enc_len)
     torch.cuda.synchronize()
     reset_counts()  # -- the prefill path starts here
     t0 = time.monotonic()
-    logits, cache = prefill_step(params, {"tokens": prompt}, cache)
+    logits, cache = prefill_step(params, batch, cache)
     torch.cuda.synchronize()
     prefill_ms = (time.monotonic() - t0) * 1e3
     prefill_counts = counts()  # -- and ends here
     prof = {}
     if profile_it:
-        _, prof["prefill"] = profiled(lambda: prefill_step(params, {"tokens": prompt}, cache))
+        _, prof["prefill"] = profiled(lambda: prefill_step(params, batch, cache))
     outs, fed, step_ms = [logits], [], []
     positions = torch.full((B,), S, dtype=torch.int32, device=prompt.device)
     reset_counts()  # -- the decode path starts here
@@ -843,12 +911,12 @@ def generate(cfg, params, prompt, steps, profile_it=False):
             decode_counts, prof)
 
 
-def decode_errors(cfg, params, prompt, outs, fed):
+def decode_errors(cfg, params, prompt, outs, fed, extra=None):
     """Each logit row of ``generate`` against the full forward over the
     prompt plus the fed-back tokens at that position (causal: one forward
     gives every position). Returns per-position max |err| and max |logit|."""
     tokens = torch.cat([prompt, fed], dim=1)
-    full = forward(cfg, params, {"tokens": tokens})[0]
+    full = forward(cfg, params, {"tokens": tokens, **(extra or {})})[0]
     S = prompt.shape[1]
     errs, scale = [], []
     for i, lg in enumerate(outs):
@@ -859,63 +927,137 @@ def decode_errors(cfg, params, prompt, outs, fed):
     return errs, scale
 
 
-def phase_decode(arch, kernel_paths):
+def encoder_embeds(cfg, batch, frames, seed=0):
+    """Frame embeddings (B, frames, d_model) in the compute dtype, standing
+    in for whisper's stride-2 conv frontend (which the repo stubs)."""
+    x = np.random.default_rng(seed).standard_normal((batch, frames, cfg.d_model),
+                                                    dtype=np.float32)
+    return torch.from_numpy(x).to("cuda", getattr(torch, cfg.compute_dtype))
+
+
+def phase_decode(arch, kernel_paths, phase="decode", path="", prompt_len=FULL_SEQ):
     """The serving steps of ``arch`` at full width (bf16, seed 0): prefill
-    4 x 1024, then 32 greedy steps; then the same check in fp32 at the
-    reduced config (B 2, prompt 16, 8 steps: tests/test_models.py's)."""
-    cfg = ARCHS[arch]
+    4 x ``prompt_len`` (whisper: with 1500 encoder frames), then 32 greedy
+    steps; then the same check in fp32 at the reduced config (B 2, prompt
+    16, 8 steps: tests/test_models.py's). MoE configs run drop-free
+    (DROP_FREE_CAPACITY), and a profiled prefill at the served capacity
+    splits the time by operator. Launches add to ``kernel_paths`` under
+    ``path + "prefill"`` and ``path + "decode"``."""
+    cfg = served = ARCHS[arch]
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=DROP_FREE_CAPACITY)
+    enc_len = WHISPER_FRAMES if cfg.is_encoder_decoder else 0
     gc.collect()
     base_alloc = torch.cuda.memory_allocated()
     with torch.inference_mode():
         params = init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
         rng = np.random.default_rng(5)
-        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (FULL_BATCH, FULL_SEQ),
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (FULL_BATCH, prompt_len),
                                                dtype=np.int32)).cuda()
+        extra = {"encoder_embeds": encoder_embeds(cfg, FULL_BATCH, enc_len)} if enc_len else {}
         outs, fed, step_ms, prefill_ms, pre_counts, dec_counts, prof = generate(
-            cfg, params, prompt, DECODE_STEPS, profile_it=True)
-        errs, scale = decode_errors(cfg, params, prompt, outs, fed)
+            cfg, params, prompt, DECODE_STEPS, profile_it=True, extra=extra, enc_len=enc_len)
+        errs, scale = decode_errors(cfg, params, prompt, outs, fed, extra)
+        if cfg.num_experts:  # the prefill as served: capacity 1.25, drops and all
+            cache = init_cache(served, FULL_BATCH, prompt_len)
+            _, prof["prefill_served_capacity"] = profiled(
+                lambda: prefill(served, params, {"tokens": prompt}, cache), by_op=True)
+            del cache
         del params, outs
         rcfg = cfg.reduced()
         rparams = init_params(rcfg, torch.Generator("cuda").manual_seed(1), "cuda")
         rtoks = torch.from_numpy(np.random.default_rng(2).integers(
             0, rcfg.vocab_size, (2, 24), dtype=np.int32)).cuda()
-        routs, rfed = generate(rcfg, rparams, rtoks[:, :16], 8)[:2]
-        rfull = forward(rcfg, rparams, {"tokens": torch.cat([rtoks[:, :16], rfed], 1)})[0]
+        rextra = {"encoder_embeds": encoder_embeds(rcfg, 2, 12)} if enc_len else {}
+        routs, rfed = generate(rcfg, rparams, rtoks[:, :16], 8, extra=rextra,
+                               enc_len=12 if enc_len else 0)[:2]
+        rfull = forward(rcfg, rparams, {"tokens": torch.cat([rtoks[:, :16], rfed], 1),
+                                        **rextra})[0]
         r_ok, r_err = True, 0.0
         for i, lg in enumerate(routs):
             ref = rfull[:, 15 + i]
             d = (lg - ref).abs()
             r_err = max(r_err, d.max().item())
             r_ok = r_ok and bool((d <= 2e-3 + 1e-3 * ref.abs()).all().item())
-        del rparams, rfull
+        del rparams, rfull, extra
     gc.collect()
     torch.cuda.empty_cache()
     rel = [e / s for e, s in zip(errs, scale)]
-    layers = cfg.num_layers
-    emit({"phase": "decode", "arch": cfg.name, "batch": FULL_BATCH, "prompt": FULL_SEQ,
+    want_pre = forward_launches(cfg)
+    cross = cfg.num_layers if cfg.is_encoder_decoder else 0
+    want_dec = {fa.NAME: 0, dec.NAME: DECODE_STEPS * (cfg.num_attn_layers + cross), ssd.NAME: 0}
+    emit({"phase": phase, "arch": cfg.name, "batch": FULL_BATCH, "prompt": prompt_len,
+          "encoder_frames": enc_len, "moe_capacity_factor": cfg.moe_capacity_factor,
           "steps": DECODE_STEPS, "prefill_ms": prefill_ms, "step_ms": step_ms,
           "step_ms_median": statistics.median(step_ms), "profile": prof,
           "decode_step_device_idle_share":
               1 - prof["decode_step"]["device_busy_ms"] / statistics.median(step_ms),
           "prefill_launches": pre_counts, "decode_launches": dec_counts,
+          "decode_launches_per_step": {n: c / DECODE_STEPS for n, c in dec_counts.items()},
           "max_abs_err_vs_forward": errs, "max_abs_logit": scale,
           "max_rel_err": max(rel), "tol_rel_bf16": DECODE_TOL_BF16,
           "reduced_fp32_max_abs_err": r_err, "reduced_fp32_tol": [2e-3, 1e-3],
           "memory_allocated_after": torch.cuda.memory_allocated(),
           "memory_allocated_before": base_alloc})
-    mixer = {s.mixer for s in cfg.period_spec()}
-    want_pre = {fa.NAME: layers if "attn" in mixer else 0, dec.NAME: 0,
-                ssd.NAME: layers if "mamba" in mixer else 0}
-    want_dec = {fa.NAME: 0, dec.NAME: DECODE_STEPS * layers if "attn" in mixer else 0,
-                ssd.NAME: 0}
     check(pre_counts == want_pre, f"{arch} prefill launches {pre_counts} != {want_pre}")
     check(dec_counts == want_dec, f"{arch} decode launches {dec_counts} != {want_dec}")
     check(all(np.isfinite(e) for e in errs), f"{arch} decode logits not finite")
     check(max(rel) <= DECODE_TOL_BF16, f"{arch} decode differs from the forward: {max(rel)}")
     check(r_ok, f"{arch} reduced fp32 decode differs from the forward: {r_err}")
     for name in KERNELS:
-        kernel_paths[name]["prefill"] += pre_counts[name]
-        kernel_paths[name]["decode"] += dec_counts[name]
+        kernel_paths[name][path + "prefill"] += pre_counts[name]
+        kernel_paths[name][path + "decode"] += dec_counts[name]
+
+
+def whisper_reduced():
+    """The reduced whisper (fp32) through prefill and 8 greedy decode steps
+    on the card against the same steps on the CPU (plain versions), within
+    1e-4; the CPU's greedy tokens feed both. Returns the card's launches."""
+    cfg = ARCHS["whisper-small"].reduced()
+    B, S, steps, enc_len = 2, 16, 8, 12
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    on_card = Database(device="cuda").to_device(params)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S),
+                                                     dtype=np.int32)),
+             "encoder_embeds": torch.from_numpy(
+                 rng.standard_normal((B, enc_len, cfg.d_model), dtype=np.float32))}
+    errs = []
+    with torch.inference_mode():
+        cpu_cache = init_cache(cfg, B, S + steps, enc_len, device="cpu")
+        cache = init_cache(cfg, B, S + steps, enc_len, device="cuda")
+        want, _, _ = prefill(cfg, params, batch, cpu_cache)
+        reset_counts()  # -- the reduced whisper's path starts here
+        got, _, _ = prefill(cfg, on_card, {k: v.cuda() for k, v in batch.items()}, cache)
+        errs.append((got.cpu() - want).abs().max().item())
+        for t in range(S, S + steps):
+            nxt = greedy_sample(want)[:, None]
+            pos = torch.full((B,), t, dtype=torch.int32)
+            want, _ = decode_step(cfg, params, nxt, pos, cpu_cache)
+            got, _ = decode_step(cfg, on_card, nxt.cuda(), pos.cuda(), cache)
+            errs.append((got.cpu() - want).abs().max().item())
+        launches = counts()  # -- and ends here
+    want_launches = {**forward_launches(cfg), dec.NAME: steps * 2 * cfg.num_layers}
+    emit({"phase": "zoo_reduced", "arch": cfg.name, "check": "prefill_decode_vs_cpu",
+          "steps": steps, "encoder_frames": enc_len, "launches": launches,
+          "max_abs_err_vs_cpu": errs, "tol": 1e-4})
+    check(launches == want_launches, f"reduced whisper launches {launches} != {want_launches}")
+    check(max(errs) <= 1e-4, f"reduced whisper on the card differs from the CPU: {errs}")
+    return launches
+
+
+def phase_zoo_reduced():
+    """The five families new to the port, reduced and in fp32 on the card:
+    MoE, hybrid and M-RoPE served through SageRuntime, whisper through the
+    serving steps. Returns the launches by kernel, summed."""
+    total = dict.fromkeys(KERNELS, 0)
+    for arch in ("olmoe-1b-7b", "llama4-maverick-400b-a17b", "jamba-1.5-large-398b",
+                 "qwen2-vl-72b"):
+        for name, n in phase_reduced("zoo_reduced", arch).items():
+            total[name] += n
+    for name, n in whisper_reduced().items():
+        total[name] += n
+    return total
 
 
 def decode_past_cache():
@@ -961,15 +1103,27 @@ def main():
     timings = {fa.NAME: phase_kernels(), dec.NAME: phase_kernels_decode(),
                ssd.NAME: phase_kernels_ssd()}
     paths = {name: dict.fromkeys(("reduced", "full_width", "mamba_reduced", "mamba_full",
-                                  "gateway", "prefill", "decode"), 0) for name in KERNELS}
-    paths[fa.NAME]["reduced"] = phase_reduced("reduced", "qwen2.5-3b", fa)
-    paths[fa.NAME]["full_width"] = phase_full("full", "qwen2.5-3b", fa, "qwen")
-    paths[ssd.NAME]["mamba_reduced"] = phase_reduced("mamba_reduced", "mamba2-780m", ssd)
-    paths[ssd.NAME]["mamba_full"] = phase_full("mamba_full", "mamba2-780m", ssd, "mamba")
+                                  "gateway", "prefill", "decode", "moe_full", "moe_prefill",
+                                  "moe_decode", "whisper_prefill", "whisper_decode",
+                                  "zoo_reduced"), 0) for name in KERNELS}
+
+    def add(path, launches):
+        for name, n in launches.items():
+            paths[name][path] += n
+
+    add("reduced", phase_reduced("reduced", "qwen2.5-3b"))
+    add("full_width", phase_full("full", "qwen2.5-3b", "qwen"))
+    add("mamba_reduced", phase_reduced("mamba_reduced", "mamba2-780m"))
+    add("mamba_full", phase_full("mamba_full", "mamba2-780m", "mamba"))
+    add("moe_full", phase_full("moe_full", "olmoe-1b-7b", "olmoe"))
     paths[fa.NAME]["gateway"] = phase_gateway()
     phase_decode("qwen2.5-3b", paths)
     phase_decode("mamba2-780m", paths)
+    phase_decode("olmoe-1b-7b", paths, path="moe_")
+    phase_decode("whisper-small", paths, phase="whisper_decode", path="whisper_",
+                 prompt_len=WHISPER_PROMPT)
     decode_past_cache()
+    add("zoo_reduced", phase_zoo_reduced())
     main_path = {fa.NAME: "full_width", dec.NAME: "decode", ssd.NAME: "mamba_full"}
     replaces = {
         fa.NAME: "src/repro/kernels/flash_attention.py:37",
@@ -978,7 +1132,11 @@ def main():
     }
     for name in KERNELS:
         check(paths[name][main_path[name]] > 0, f"{name} never launched on its path")
-    check(paths[fa.NAME]["gateway"] > 0, f"{fa.NAME} never launched through the Gateway")
+    for name, path in ((fa.NAME, "gateway"), (fa.NAME, "moe_full"), (dec.NAME, "moe_decode"),
+                       (fa.NAME, "whisper_prefill"), (dec.NAME, "whisper_decode"),
+                       (fa.NAME, "zoo_reduced"), (dec.NAME, "zoo_reduced"),
+                       (ssd.NAME, "zoo_reduced")):
+        check(paths[name][path] > 0, f"{name} never launched on the {path} path")
     emit({"phase": "wall", "seconds": time.monotonic() - t_start})
     emit({"kernels": [{
         "name": name, "route": "cuda",

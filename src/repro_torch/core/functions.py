@@ -81,8 +81,9 @@ def _model_function(
     declared_ro_bytes: Optional[int] = None,
     seed: int = 0,
 ) -> GPUFunction:
-    """``make_model_function`` for any ported ``cfg`` — dense or Mamba2,
-    full width included."""
+    """``make_model_function`` for any ``cfg`` whose forward takes tokens
+    alone (every family but encoder-decoder, as in the JAX package), full
+    width included."""
     params = _host_params(cfg, seed, db.device)
     real_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     ro_bytes = declared_ro_bytes or (

@@ -1,5 +1,6 @@
-"""Shared model layers: dense attention (full sequence and one-token decode
-against a cache), SwiGLU MLP, embedding (plain functions on tensors).
+"""Shared model layers: attention (RoPE or M-RoPE; full sequence, cross
+attention and one-token decode against a cache), SwiGLU MLP, the MoE FFN,
+embedding (plain functions on tensors).
 
 Conventions (as in the JAX package's ``repro.models.layers``)
 -----------------------------------------------------------
@@ -22,7 +23,7 @@ the JAX weights over instead (``models.convert``).
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -77,16 +78,38 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exponent)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (..., S, H, Dh); positions: broadcastable to (..., S)."""
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate the two halves of x (..., S, H, Dh) by ``angles`` (..., S,
+    Dh/2), in fp32."""
     half = x.shape[-1] // 2
-    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (half,)
-    angles = positions.float()[..., None] * freqs  # (..., S, half)
     cos = torch.cos(angles)[..., None, :]  # (..., S, 1, half)
     sin = torch.sin(angles)[..., None, :]
     x1f, x2f = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: broadcastable to (..., S)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (half,)
+    return _rotate(x, positions.float()[..., None] * freqs)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): ``positions`` is (3, ..., S); the half-dim
+    frequency bands are split into ``sections`` (t, h, w), each rotated by its
+    own position stream."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} must sum to head_dim/2 = {half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (half,)
+    # stream i drives the i-th band of frequencies; the bands are slices, so
+    # no index tensor is copied to the card
+    pos = positions.float()  # (3, ..., S)
+    angles = torch.cat([pos[i, ..., None] * band
+                        for i, band in enumerate(freqs.split(list(sections)))], dim=-1)
+    return _rotate(x, angles)  # angles (..., S, half)
 
 
 # ---------------------------------------------------------------------------
@@ -114,31 +137,29 @@ def init_attention(cfg: ModelConfig, gen, device, lead=()) -> dict:
     return p
 
 
-def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, kv_x: torch.Tensor):
-    B, S, _ = x.shape
-    Skv = kv_x.shape[1]
-    nq, nkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+def _project(cfg: ModelConfig, p: dict, x: torch.Tensor, name: str, heads: int):
+    """One of the q/k/v projections: (B, S, D) -> (B, S, heads, Dh), with the
+    bias and (q and k only) the qk-norm where the config has them."""
     ct = cdtype(cfg)
-    q = x.to(ct) @ p["wq"].to(ct)
-    k = kv_x.to(ct) @ p["wk"].to(ct)
-    v = kv_x.to(ct) @ p["wv"].to(ct)
+    y = x.to(ct) @ p[f"w{name}"].to(ct)
     if cfg.qkv_bias:
-        q = q + p["bq"].to(ct)
-        k = k + p["bk"].to(ct)
-        v = v + p["bv"].to(ct)
-    q = q.reshape(B, S, nq, dh)
-    k = k.reshape(B, Skv, nkv, dh)
-    v = v.reshape(B, Skv, nkv, dh)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.rmsnorm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.rmsnorm_eps)
-    return q, k, v
+        y = y + p[f"b{name}"].to(ct)
+    y = y.reshape(x.shape[0], x.shape[1], heads, cfg.head_dim)
+    if cfg.qk_norm and name != "v":
+        y = rms_norm(y, p[f"{name}_norm"], cfg.rmsnorm_eps)
+    return y
+
+
+def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, kv_x: torch.Tensor):
+    return (_project(cfg, p, x, "q", cfg.num_heads),
+            _project(cfg, p, kv_x, "k", cfg.num_kv_heads),
+            _project(cfg, p, kv_x, "v", cfg.num_kv_heads))
 
 
 def _rope_qk(cfg: ModelConfig, q, k, positions):
     if cfg.mrope_sections:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl) is not ported yet: ROADMAP.md Queue 1 item 7")
+        return (apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta)
 
 
@@ -151,9 +172,9 @@ def attention_forward(
     causal: bool = True,
     return_kv: bool = False,
 ):
-    """Full-sequence attention (forward / prefill). positions: (B, S).
-    With ``return_kv`` also returns the roped (k, v), (B, S, Hkv, Dh) in the
-    compute dtype, for the prefill's cache."""
+    """Full-sequence attention (forward / prefill). positions: (B, S), or
+    (3, B, S) for M-RoPE. With ``return_kv`` also returns the roped (k, v),
+    (B, S, Hkv, Dh) in the compute dtype, for the prefill's cache."""
     q, k, v = _project_qkv(cfg, p, x, x)
     q, k = _rope_qk(cfg, q, k, positions)
     out = ops.flash_attention(q, k, v, causal=causal)
@@ -170,16 +191,41 @@ def _out_proj(cfg: ModelConfig, p: dict, out: torch.Tensor) -> torch.Tensor:
     return flat @ p["wo"].to(ct)
 
 
+def cross_attention_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, enc: torch.Tensor,
+                            *, return_kv: bool = False):
+    """Cross attention (whisper decoder): queries from x, k/v from the
+    encoder output, no RoPE, non-causal. With ``return_kv`` also returns
+    (k, v), (B, S_enc, Hkv, Dh), for the prefill's cross cache."""
+    q, k, v = _project_qkv(cfg, p, x, enc)
+    out = ops.flash_attention(q, k, v, causal=False)
+    y = _out_proj(cfg, p, out)
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def cross_attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                           ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """One-token cross attention against the prefill's cross cache
+    (B, S_enc, Hkv, Dh): every row attends over the whole encoder output.
+    Only q is projected (the JAX step projects k and v too and drops them);
+    the lengths are made on the device, so nothing waits for the card."""
+    q = _project(cfg, p, x, "q", cfg.num_heads)
+    lengths = torch.full((x.shape[0],), ck.shape[1], dtype=torch.int32, device=x.device)
+    return _out_proj(cfg, p, ops.decode_attention(q, ck, cv, lengths))
+
+
 def attention_decode(
     cfg: ModelConfig,
     p: dict,
     x: torch.Tensor,          # (B, 1, D)
-    positions: torch.Tensor,  # (B,) int32, absolute position of the new token
+    positions: torch.Tensor,  # (B,) int32 absolute position, or (3, B) for M-RoPE
     k_cache: torch.Tensor,    # (B, L, Hkv, Dh)
     v_cache: torch.Tensor,
 ):
-    """One-token decode: rope at ``positions``, write the new token's k/v
-    into the cache at ``positions``, attend against the cache through
+    """One-token decode: rope at ``positions`` (M-RoPE: its three streams;
+    the cache row and the length follow the first), write the new token's
+    k/v into the cache at ``positions``, attend against the cache through
     ``ops.decode_attention`` with ``lengths = positions + 1``.
 
     The JAX version scatters into a new cache (``.at[bidx, pos].set``); here
@@ -190,8 +236,12 @@ def attention_decode(
     (on the card an out-of-range index would be a device-side assert).
     ``positions`` stays on the device: nothing here waits for the card."""
     B = x.shape[0]
+    if cfg.mrope_sections:
+        pos_rope, positions = positions[..., None], positions[0]  # (3, B, 1), (B,)
+    else:
+        pos_rope = positions[:, None]
     q, k, v = _project_qkv(cfg, p, x, x)
-    q, k = _rope_qk(cfg, q, k, positions[:, None])
+    q, k = _rope_qk(cfg, q, k, pos_rope)
     bidx = torch.arange(B, device=x.device)
     L = k_cache.shape[1]
     pos = positions.long()
@@ -227,6 +277,95 @@ def mlp_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     u = x @ p["wu"].to(ct)
     h = F.silu(g.float()).to(ct) * u
     return h @ p["wd"].to(ct)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (GShard-style capacity-bounded einsum dispatch)
+# ---------------------------------------------------------------------------
+
+
+def init_moe(cfg: ModelConfig, gen, device, lead=()) -> dict:
+    dt = pdtype(cfg)
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    p = {
+        "router": dense_init(gen, d, e, torch.float32, device, lead),  # router kept fp32
+        "wg": _uniform(gen, (*lead, e, d, f), 1.0 / math.sqrt(d), dt, device),
+        "wu": _uniform(gen, (*lead, e, d, f), 1.0 / math.sqrt(d), dt, device),
+        "wd": _uniform(gen, (*lead, e, f, d), 1.0 / math.sqrt(f), dt, device),
+    }
+    if cfg.moe_shared_expert:
+        p["shared"] = init_mlp(cfg, gen, device, cfg.moe_d_ff, lead)
+    return p
+
+
+def moe_route(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """The router, in fp32 whatever the compute dtype: (probs (B,S,E),
+    renormalised gates (B,S,K), chosen experts (B,S,K) int64). Ties go to
+    the lower expert index, as ``lax.top_k`` breaks them (``torch.topk``
+    does not promise an order): a stable descending sort, cut at K."""
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    K = cfg.experts_per_token
+    gate_vals, gate_idx = gate_vals[..., :K], gate_idx[..., :K]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+                capacity_factor: Optional[float] = None):
+    """Token-choice top-k routing with per-(batch-row) expert capacity C;
+    x (B, S, D). Returns (y, aux_loss).
+
+    The JAX package's one-hot einsum dispatch, ported as it is: a choice
+    whose slot in its expert's buffer is >= C is dropped (its token gets
+    nothing from that expert), and the drops are part of the result.
+    ``jax.nn.one_hot`` gives a zero row for an index out of range where
+    ``F.one_hot`` raises, so the capacity one-hot is a comparison with
+    ``arange(C)`` and ``kept``. The slots are counted in integers (the
+    reference counts exact integers in fp32). Dispatch, combine and the
+    gates are cast to the compute dtype before the einsums, as there."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    cf = capacity_factor if capacity_factor is not None else cfg.moe_capacity_factor
+    C = max(K, int(math.ceil(K * S * cf / E)))
+    ct = cdtype(cfg)
+
+    probs, gate_vals, gate_idx = moe_route(cfg, p, x)
+    onehot = F.one_hot(gate_idx, E)  # (B,S,K,E) int64; the indices are < E
+    # each (token, choice)'s slot in its expert's buffer: the choices before
+    # it of its expert, counting over the flattened (s, k) in order per
+    # batch row. The running count is taken along the innermost axis of an
+    # (B, E, S*K) layout, where the card scans each row in parallel (along
+    # an outer axis each column is one thread's serial loop)
+    flat_idx = gate_idx.reshape(B, 1, S * K)
+    mine = flat_idx == torch.arange(E, device=x.device)[None, :, None]  # (B,E,S*K)
+    running = torch.cumsum(mine, dim=-1, dtype=torch.int32)
+    pos_c = (running.gather(1, flat_idx) - 1).reshape(B, S, K)
+    kept = (pos_c < C)[..., None]
+    slots = torch.arange(C, device=x.device)
+    cap_onehot = ((pos_c[..., None] == slots) & kept).to(ct)  # (B,S,K,C)
+    onehot_ct = onehot.to(ct)
+    dispatch = torch.einsum("bske,bskc->bsec", onehot_ct, cap_onehot)
+    # each token's K experts differ, so one k feeds each (s, e): the gate
+    # folded into the one-hot first is the reference's three-way einsum
+    combine = torch.einsum("bske,bskc->bsec", onehot_ct * gate_vals.to(ct)[..., None],
+                           cap_onehot)
+
+    xin = torch.einsum("bsec,bsd->ebcd", dispatch, x.to(ct))
+    g = torch.einsum("ebcd,edf->ebcf", xin, p["wg"].to(ct))
+    u = torch.einsum("ebcd,edf->ebcf", xin, p["wu"].to(ct))
+    h = F.silu(g.float()).to(ct) * u
+    eout = torch.einsum("ebcf,efd->ebcd", h, p["wd"].to(ct))
+    y = torch.einsum("bsec,ebcd->bsd", combine, eout)
+
+    if cfg.moe_shared_expert:
+        y = y + mlp_forward(cfg, p["shared"], x)
+
+    # load-balancing aux loss (Switch-style)
+    frac_tokens = onehot.sum(2).float().mean(dim=(0, 1))  # (E,) fraction routed
+    frac_probs = probs.mean(dim=(0, 1))
+    aux = E * torch.sum(frac_tokens * frac_probs) / K
+    return y.to(x.dtype), aux.float()
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,21 @@
-"""Model facade: init / forward / prefill / decode for the dense and SSM
-families.
+"""Model facade: init / forward / prefill / decode for every family of the
+zoo: dense, MoE, M-RoPE, Mamba2, hybrid and encoder-decoder.
 
 Params and the period stack keep the JAX layout: ``params["layers"]`` holds
 ``{"sub{i}": subtree}`` whose every leaf has a leading ``num_periods`` axis,
-and so does every leaf of a decode cache. The JAX package scans over that
-axis with ``lax.scan``; here a Python loop indexes the stacked leaves with
-``[i]``. Rematerialisation and activation sharding (``_maybe_remat``,
+and so does every leaf of a decode cache; the encoder's stack
+(``params["enc_layers"]``) leads with ``encoder_layers`` instead. The JAX
+package scans over that axis with ``lax.scan``; here a Python loop indexes
+the stacked leaves with ``[i]``, as many times as the stack's own leading
+size. Rematerialisation and activation sharding (``_maybe_remat``,
 ``constrain``) do nothing when serving on one device and are not carried
 over.
 
 The JAX cache is immutable and every step returns a new one; here
 ``prefill`` and ``decode_step`` write into the ``[period]`` views of the
-stacked cache IN PLACE and return the same dict.
-
-MoE, M-RoPE and encoder-decoder paths are not ported yet; they raise
-``NotImplementedError`` naming their ROADMAP.md item (hybrid jamba for its
-MoE FFN).
+stacked cache IN PLACE and return the same dict. So the cross cache
+(encoder-decoder) must be allocated at the encoder's length: the JAX
+prefill replaces it with whatever length the encoder gives.
 """
 from __future__ import annotations
 
@@ -31,19 +31,12 @@ from repro_torch.models import mamba2 as M
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
 
-
-def _check_ported(cfg: ModelConfig) -> None:
-    """Raise for the families this port does not serve yet."""
-    missing = None
-    if cfg.is_encoder_decoder:
-        missing = "encoder-decoder (whisper)"
-    elif cfg.mrope_sections:
-        missing = "M-RoPE (qwen2-vl)"
-    elif any(s.ffn == "moe" for s in cfg.period_spec()):
-        missing = "the MoE FFN (olmoe, llama4, jamba)"
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {missing} is not ported yet (ROADMAP.md Queue 1 item 7)")
+ENC_SPEC = (SublayerSpec(mixer="attn", ffn="dense"),)  # the whisper encoder's sublayer
+# the decode step routes B tokens as one row of B with the JAX ``model.py``
+# decode factor: C = max(K, ceil(K * B * 4 / E)). Where C < B an expert can
+# still overflow and drop a choice, as in the reference (llama4: K 1, E 128;
+# jamba: K 2, E 16, at B 4); olmoe (K 8, E 64) gets C = 8 >= B up to B 8
+DECODE_CAPACITY_FACTOR = 4.0
 
 
 # ---------------------------------------------------------------------------
@@ -51,33 +44,47 @@ def _check_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_sublayer(cfg: ModelConfig, spec: SublayerSpec, gen, device, lead) -> dict:
+def _init_sublayer(cfg: ModelConfig, spec: SublayerSpec, gen, device, lead, *,
+                   cross: bool) -> dict:
     dt = L.pdtype(cfg)
-    p: dict = {"norm1": torch.ones((*lead, cfg.d_model), dtype=dt, device=device)}
+    ones = lambda: torch.ones((*lead, cfg.d_model), dtype=dt, device=device)  # noqa: E731
+    p: dict = {"norm1": ones()}
     if spec.mixer == "attn":
         p["mixer"] = L.init_attention(cfg, gen, device, lead)
     else:
         p["mixer"] = M.init_mamba(cfg, gen, device, lead)
+    if cross:
+        p["cross"] = L.init_attention(cfg, gen, device, lead)
+        p["norm_cross"] = ones()
     if spec.ffn == "dense":
-        p["norm2"] = torch.ones((*lead, cfg.d_model), dtype=dt, device=device)
+        p["norm2"] = ones()
         p["ffn"] = L.init_mlp(cfg, gen, device, lead=lead)
+    elif spec.ffn == "moe":
+        p["norm2"] = ones()
+        p["ffn"] = L.init_moe(cfg, gen, device, lead)
     return p
+
+
+def _init_stack(cfg: ModelConfig, gen, device, depth: int, specs, *, cross: bool) -> dict:
+    """Stacked params: {'sub{i}': subtree with a leading ``depth`` axis}."""
+    return {f"sub{i}": _init_sublayer(cfg, spec, gen, device, (depth,), cross=cross)
+            for i, spec in enumerate(specs)}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> Params:
     """Uniform ±1/√d_in weights, ±0.02 embedding, zero biases, unit norms,
-    the Mamba2 constants (the JAX init scheme), drawn from ``generator`` on
-    ``device``."""
-    _check_ported(cfg)
+    the Mamba2 constants, an fp32 router (the JAX init scheme), drawn from
+    ``generator`` on ``device``."""
     device = resolve_device(device)
     dt = L.pdtype(cfg)
-    lead = (cfg.num_periods,)
     params: Params = {"embed": L.init_embed(cfg, generator, device)}
-    params["layers"] = {
-        f"sub{i}": _init_sublayer(cfg, spec, generator, device, lead)
-        for i, spec in enumerate(cfg.period_spec())
-    }
+    params["layers"] = _init_stack(cfg, generator, device, cfg.num_periods, cfg.period_spec(),
+                                   cross=cfg.is_encoder_decoder)
     params["final_norm"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
+    if cfg.is_encoder_decoder:
+        params["enc_layers"] = _init_stack(cfg, generator, device, cfg.encoder_layers,
+                                           ENC_SPEC, cross=False)
+        params["enc_final_norm"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
     return params
 
 
@@ -93,11 +100,32 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def _depth(tree) -> int:
+    """The leading size of a stacked subtree (periods or encoder layers)."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+def _ffn(cfg: ModelConfig, spec: SublayerSpec, p: dict, h: torch.Tensor, *,
+         capacity_factor: Optional[float] = None):
+    """The FFN half of a sublayer: (h, its MoE aux loss or 0.0)."""
+    if spec.ffn == "none":
+        return h, 0.0
+    x2 = L.rms_norm(h, p["norm2"], cfg.rmsnorm_eps)
+    if spec.ffn == "dense":
+        return h + L.mlp_forward(cfg, p["ffn"], x2).to(h.dtype), 0.0
+    f, aux = L.moe_forward(cfg, p["ffn"], x2, capacity_factor=capacity_factor)
+    return h + f.to(h.dtype), aux
+
+
 def _apply_sublayer_full(cfg: ModelConfig, spec: SublayerSpec, p: dict,
                          h: torch.Tensor, *, positions, causal: bool,
-                         cache: Optional[dict] = None) -> torch.Tensor:
-    """Full-sequence sublayer. With ``cache`` (prefill: this sublayer's
-    ``[period]`` views) the mixer's state is written into it in place."""
+                         enc: Optional[torch.Tensor] = None,
+                         cache: Optional[dict] = None):
+    """Full-sequence sublayer; returns (h, aux). With ``cache`` (prefill:
+    this sublayer's ``[period]`` views) the mixer's state and the cross k/v
+    are written into it in place."""
     x = L.rms_norm(h, p["norm1"], cfg.rmsnorm_eps)
     if spec.mixer == "attn":
         if cache is not None:
@@ -116,10 +144,16 @@ def _apply_sublayer_full(cfg: ModelConfig, spec: SublayerSpec, p: dict,
         else:
             y = M.mamba_forward(cfg, p["mixer"], x)
     h = h + y.to(h.dtype)
-    if spec.ffn == "dense":
-        x2 = L.rms_norm(h, p["norm2"], cfg.rmsnorm_eps)
-        h = h + L.mlp_forward(cfg, p["ffn"], x2).to(h.dtype)
-    return h
+    if "cross" in p and enc is not None:
+        xc = L.rms_norm(h, p["norm_cross"], cfg.rmsnorm_eps)
+        if cache is not None:
+            yc, (ck, cv) = L.cross_attention_forward(cfg, p["cross"], xc, enc, return_kv=True)
+            cache["ck"].copy_(ck)
+            cache["cv"].copy_(cv)
+        else:
+            yc = L.cross_attention_forward(cfg, p["cross"], xc, enc)
+        h = h + yc.to(h.dtype)
+    return _ffn(cfg, spec, p, h)
 
 
 def _apply_sublayer_step(cfg: ModelConfig, spec: SublayerSpec, p: dict,
@@ -129,16 +163,23 @@ def _apply_sublayer_step(cfg: ModelConfig, spec: SublayerSpec, p: dict,
     sublayer's ``[period]`` views) in place."""
     x = L.rms_norm(h, p["norm1"], cfg.rmsnorm_eps)
     if spec.mixer == "attn":
-        y, _, _ = L.attention_decode(cfg, p["mixer"], x, positions, cache["k"], cache["v"])
+        pos = positions.expand(3, *positions.shape) if cfg.mrope_sections else positions
+        y, _, _ = L.attention_decode(cfg, p["mixer"], x, pos, cache["k"], cache["v"])
     else:
         y, ns, ncv = M.mamba_decode(cfg, p["mixer"], x, cache["ssm"], cache["conv"])
         cache["ssm"].copy_(ns)
         cache["conv"].copy_(ncv)
     h = h + y.to(h.dtype)
-    if spec.ffn == "dense":
-        x2 = L.rms_norm(h, p["norm2"], cfg.rmsnorm_eps)
-        h = h + L.mlp_forward(cfg, p["ffn"], x2).to(h.dtype)
-    return h
+    if "cross" in p:
+        xc = L.rms_norm(h, p["norm_cross"], cfg.rmsnorm_eps)
+        h = h + L.cross_attention_decode(cfg, p["cross"], xc, cache["ck"],
+                                         cache["cv"]).to(h.dtype)
+    if spec.ffn == "moe":  # the B new tokens are routed as one row of B
+        B = h.shape[0]
+        out, _ = _ffn(cfg, spec, p, h.reshape(1, B, -1),
+                      capacity_factor=DECODE_CAPACITY_FACTOR)
+        return out.reshape(B, 1, -1)
+    return _ffn(cfg, spec, p, h)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -147,21 +188,27 @@ def _apply_sublayer_step(cfg: ModelConfig, spec: SublayerSpec, p: dict,
 
 
 def _run_stack_full(cfg: ModelConfig, stack_params: dict, specs, h, *,
-                    positions, causal: bool,
-                    cache_stack: Optional[dict] = None) -> torch.Tensor:
-    for period in range(cfg.num_periods):
+                    positions, causal: bool, enc: Optional[torch.Tensor] = None,
+                    cache_stack: Optional[dict] = None):
+    """Every period of the stack over a full sequence; returns (h, the aux
+    losses summed over sublayers, a 0-d fp32 tensor)."""
+    aux = 0.0  # a tensor from the first MoE sublayer on: no launch per dense one
+    for period in range(_depth(stack_params)):
         pp = _index(stack_params, period)
         cc = _index(cache_stack, period) if cache_stack is not None else None
         for i, spec in enumerate(specs):
-            h = _apply_sublayer_full(cfg, spec, pp[f"sub{i}"], h, positions=positions,
-                                     causal=causal,
-                                     cache=cc[f"sub{i}"] if cc is not None else None)
-    return h
+            h, a = _apply_sublayer_full(cfg, spec, pp[f"sub{i}"], h, positions=positions,
+                                        causal=causal, enc=enc,
+                                        cache=cc[f"sub{i}"] if cc is not None else None)
+            aux = aux + a
+    if not torch.is_tensor(aux):
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
 def _run_stack_step(cfg: ModelConfig, stack_params: dict, specs, h, cache_stack, *,
                     positions) -> torch.Tensor:
-    for period in range(cfg.num_periods):
+    for period in range(_depth(stack_params)):
         pp = _index(stack_params, period)
         cc = _index(cache_stack, period)
         for i, spec in enumerate(specs):
@@ -175,29 +222,56 @@ def _run_stack_step(cfg: ModelConfig, stack_params: dict, specs, h, cache_stack,
 # ---------------------------------------------------------------------------
 
 
-def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]):
-    """Eval forward. Returns (logits (B,S,V) fp32, aux_loss)."""
-    _check_ported(cfg)
+def _positions(cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """(1, S) positions, or M-RoPE's (3, B, S): the batch's
+    ``mrope_positions``, else ``arange`` in all three streams."""
     tokens = batch["tokens"]
-    S = tokens.shape[1]
-    positions = torch.arange(S, device=tokens.device)[None, :]
-    h = L.embed(cfg, params["embed"], tokens)
-    h = _run_stack_full(cfg, params["layers"], cfg.period_spec(), h,
-                        positions=positions, causal=cfg.causal)
+    B, S = tokens.shape
+    pos = torch.arange(S, device=tokens.device)
+    if not cfg.mrope_sections:
+        return pos[None, :]
+    given = batch.get("mrope_positions")
+    return given if given is not None else pos.expand(3, B, S)
+
+
+def _encode(cfg: ModelConfig, params: Params, enc_embeds: torch.Tensor) -> torch.Tensor:
+    """Whisper encoder: non-causal self-attention over frame embeddings."""
+    pos = torch.arange(enc_embeds.shape[1], device=enc_embeds.device)[None, :]
+    h = enc_embeds.to(L.cdtype(cfg))
+    h, _ = _run_stack_full(cfg, params["enc_layers"], ENC_SPEC, h, positions=pos,
+                           causal=cfg.encoder_causal)
+    return L.rms_norm(h, params["enc_final_norm"], cfg.rmsnorm_eps)
+
+
+def _run(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+         cache: Optional[Cache] = None):
+    """Embed, encode (encoder-decoder), run the decoder stack; (h, aux)."""
+    enc = None
+    if cfg.is_encoder_decoder:
+        enc = _encode(cfg, params, batch["encoder_embeds"])
+    h = L.embed(cfg, params["embed"], batch["tokens"])
+    return _run_stack_full(cfg, params["layers"], cfg.period_spec(), h,
+                           positions=_positions(cfg, batch), causal=cfg.causal, enc=enc,
+                           cache_stack=cache)
+
+
+def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]):
+    """Eval forward. ``batch`` holds ``tokens`` (B, S), and
+    ``encoder_embeds`` (B, S_enc, D) for encoder-decoder models; M-RoPE
+    models may add ``mrope_positions`` (3, B, S). Returns (logits (B,S,V)
+    fp32, the MoE aux loss summed over sublayers)."""
+    h, aux = _run(cfg, params, batch)
     h = L.rms_norm(h, params["final_norm"], cfg.rmsnorm_eps)
-    logits = L.unembed(cfg, params["embed"], h)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    return L.unembed(cfg, params["embed"], h), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
                device="cuda") -> Cache:
     """Zero-filled decode cache (leading num_periods axis per leaf): k/v
     (P, B, max_len, Hkv, Dh) in the compute dtype for attention, ssm
-    (P, B, H, P, N) fp32 and conv (P, B, W-1, conv_dim) for Mamba2.
-    ``enc_len`` is kept for the JAX signature (encoder-decoder raises).
+    (P, B, H, P, N) fp32 and conv (P, B, W-1, conv_dim) for Mamba2, and for
+    encoder-decoder models the cross k/v ck/cv (P, B, enc_len, Hkv, Dh).
     ``device="meta"`` allocates nothing (``serving.cache_shapes``)."""
-    _check_ported(cfg)
-    del enc_len
     device = resolve_device(device)
     P = cfg.num_periods
     dt = L.cdtype(cfg)
@@ -214,24 +288,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
                 dtype=torch.float32, device=device)
             entry["conv"] = torch.zeros((P, batch, cfg.ssm_conv - 1, cfg.ssm_conv_dim),
                                         dtype=dt, device=device)
+        if cfg.is_encoder_decoder:
+            ckv = (P, batch, enc_len, cfg.num_kv_heads, cfg.head_dim)
+            entry["ck"] = torch.zeros(ckv, dtype=dt, device=device)
+            entry["cv"] = torch.zeros(ckv, dtype=dt, device=device)
         cache[f"sub{i}"] = entry
     return cache
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], cache: Cache):
-    """Run the prompt through the model, filling ``cache`` in place.
+    """Run the prompt through the model, filling ``cache`` in place
+    (``batch`` as for ``forward``).
 
     Returns (last-position logits (B,V) fp32, cache, aux)."""
-    _check_ported(cfg)
-    tokens = batch["tokens"]
-    S = tokens.shape[1]
-    positions = torch.arange(S, device=tokens.device)[None, :]
-    h = L.embed(cfg, params["embed"], tokens)
-    h = _run_stack_full(cfg, params["layers"], cfg.period_spec(), h,
-                        positions=positions, causal=cfg.causal, cache_stack=cache)
+    if cfg.is_encoder_decoder:
+        enc_len, have = batch["encoder_embeds"].shape[1], cache["sub0"]["ck"].shape[2]
+        if enc_len != have:
+            raise ValueError(f"the cross cache holds {have} encoder positions, the "
+                             f"encoder gives {enc_len}: init_cache(..., enc_len={enc_len})")
+    h, aux = _run(cfg, params, batch, cache)
     h = L.rms_norm(h[:, -1:], params["final_norm"], cfg.rmsnorm_eps)
     logits = L.unembed(cfg, params["embed"], h)[:, 0]
-    return logits, cache, torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, cache, aux
 
 
 def decode_step(
@@ -241,8 +319,8 @@ def decode_step(
     positions: torch.Tensor,  # (B,) int32 absolute position of the new token
     cache: Cache,
 ):
-    """One decode step; updates ``cache`` in place. Returns (logits (B,V)
-    fp32, cache)."""
+    """One decode step (M-RoPE: all three streams at ``positions``);
+    updates ``cache`` in place. Returns (logits (B,V) fp32, cache)."""
     h = L.embed(cfg, params["embed"], tokens)
     h = _run_stack_step(cfg, params["layers"], cfg.period_spec(), h, cache,
                         positions=positions)

@@ -407,12 +407,12 @@ def test_autoscaled_joiner_gets_the_gateways_device():
 # Served outputs and stats keys against the reference gateway
 # ---------------------------------------------------------------------------
 
-def _served(m, seeds, weights=None, **kw):
-    """Cold + warm invocations of one reduced-qwen function; returns the
+def _served(m, seeds, weights=None, arch="qwen2.5-3b", **kw):
+    """Cold + warm invocations of one reduced-``arch`` function; returns the
     served outputs, records and stats key sets. ``weights`` (port only)
     replaces the function's weights after registration."""
     with m.Gateway(backend="runtime", policy="sage", time_scale=0.02, **kw) as gw:
-        gw.register(m.FunctionSpec(name="demo", seed=3, **SMALL))
+        gw.register(m.FunctionSpec(name="demo", seed=3, **{**SMALL, "arch": arch}))
         db = gw.runtime.db
         if weights is not None:
             db.put("demo/weights", weights, size=db.size_of("demo/weights"))
@@ -425,10 +425,22 @@ def _served(m, seeds, weights=None, **kw):
 
 
 def test_served_outputs_match_reference_gateway():
+    _served_outputs_match_reference("qwen2.5-3b")
+
+
+# the other families the JAX package's runtime gateway serves (whisper needs
+# encoder embeddings, which its runtime forward does not pass)
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "llama4-maverick-400b-a17b",
+                                  "jamba-1.5-large-398b", "qwen2-vl-72b"])
+def test_served_zoo_outputs_match_reference_gateway(arch):
+    _served_outputs_match_reference(arch)
+
+
+def _served_outputs_match_reference(arch):
     seeds = (0, 1, 2)
-    want, ref_recs, ref_keys, jparams = _served(ref_api, seeds)
+    want, ref_recs, ref_keys, jparams = _served(ref_api, seeds, arch=arch)
     weights = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
-    got, recs, keys, _ = _served(api, seeds, weights=weights, **CPU)
+    got, recs, keys, _ = _served(api, seeds, weights=weights, arch=arch, **CPU)
     assert [r.warm_stage for r in recs] == [r.warm_stage for r in ref_recs] == [None, 1, 1]
     assert [sorted(r.stages) for r in recs] == [sorted(r.stages) for r in ref_recs]
     assert keys == ref_keys

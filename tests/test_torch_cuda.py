@@ -37,6 +37,13 @@ SHAPES = [
     (1, 200, 333, 6, 2, 128, False),
     (2, 200, 333, 16, 2, 128, False),
     (1, 200, 333, 16, 1, 16, False),
+    # the serving shapes of the rest of the zoo, all MHA (G = 1): olmoe's
+    # prefill; whisper's encoder (1500 frames: a ragged last 64-key tile),
+    # its decoder prompt and its cross attention (Sq != Sk)
+    (4, 1024, 1024, 16, 16, 128, True),
+    (4, 1500, 1500, 12, 12, 64, False),
+    (4, 128, 128, 12, 12, 64, True),
+    (4, 128, 1500, 12, 12, 64, False),
 ]
 
 
@@ -84,6 +91,8 @@ DECODE_SHAPES = [
     (2, 28, 4, 2, 16),       # reduced serving shape (qwen2.5-3b, qwen3-8b)
     (4, 1056, 16, 2, 128),   # full-width qwen2.5-3b decode
     (2, 70, 24, 8, 128),     # G=3 (phi4-mini)
+    (4, 1056, 16, 16, 128),  # full-width olmoe decode (MHA)
+    (4, 160, 12, 12, 64),    # full-width whisper self decode (MHA)
 ]
 
 
@@ -106,6 +115,24 @@ def test_decode_kernel_matches_plain(cuda, dtype, B, L, Hq, Hkv, Dh):
     torch.cuda.synchronize()
     assert dec.launches == before + 1
     assert out.dtype == q.dtype and out.shape == q.shape
+    plain = ops.decode_attention(q, k, v, lengths, use_kernel=False)
+    tol = 2e-2 if dtype == "bfloat16" else 3e-5  # tests/test_kernels.py
+    np.testing.assert_allclose(out.float().cpu().numpy(), plain.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_at_the_whisper_cross_shape(cuda, dtype):
+    """whisper's cross decode: every row attends over all 1500 encoder
+    frames (every length is the cache's), MHA, Dh 64."""
+    B, L, Hq, Hkv, Dh = 4, 1500, 12, 12, 64
+    q, k, v, _ = _decode_inputs(cuda, dtype, B, L, Hq, Hkv, Dh)
+    lengths = torch.full((B,), L, dtype=torch.int32, device=cuda)
+    before = dec.launches
+    out = ops.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert dec.launches == before + 1
     plain = ops.decode_attention(q, k, v, lengths, use_kernel=False)
     tol = 2e-2 if dtype == "bfloat16" else 3e-5  # tests/test_kernels.py
     np.testing.assert_allclose(out.float().cpu().numpy(), plain.float().cpu().numpy(),
@@ -405,3 +432,90 @@ def test_gateway_serves_on_the_card(cuda):
                 toks = db.fetch(f"demo/in/{rec.request_id}").to(cuda)
                 direct = forward(cfg, weights, {"tokens": toks})[0][:, -1, :8].float().cpu()
                 np.testing.assert_array_equal(db.fetch(rec.result), direct.numpy())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "llama4-maverick-400b-a17b",
+                                  "jamba-1.5-large-398b", "whisper-small", "qwen2-vl-72b"])
+def test_zoo_reduced_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced MoE, hybrid, encoder-decoder and M-RoPE configs in fp32:
+    the forward on the card (K1, and K3 for jamba) against the CPU's plain
+    path within 1e-4, and for whisper prefill + 4 decode steps (K1, K2 on
+    the self and the cross cache) within 3e-5 of the CPU's steps."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import decode_step, forward, init_cache, init_params, prefill
+
+    cfg = ARCHS[arch].reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    cparams = _to(params, cuda)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16),
+                                                     dtype=np.int32))}
+    if cfg.is_encoder_decoder:
+        batch["encoder_embeds"] = torch.from_numpy(
+            rng.standard_normal((2, 12, cfg.d_model), dtype=np.float32))
+    cbatch = _to(batch, cuda)
+    before = fa.launches
+    with torch.inference_mode():
+        got, aux = forward(cfg, cparams, cbatch)
+        want, want_aux = forward(cfg, params, batch)
+    torch.cuda.synchronize()
+    assert fa.launches - before == cfg.num_attn_layers + (
+        cfg.encoder_layers + cfg.num_layers if cfg.is_encoder_decoder else 0)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+    if not cfg.is_encoder_decoder:
+        return
+    with torch.inference_mode():
+        caches = {d: init_cache(cfg, 2, 20, 12, device=d) for d in ("cpu", cuda)}
+        lg = {"cpu": prefill(cfg, params, batch, caches["cpu"])[0],
+              cuda: prefill(cfg, cparams, cbatch, caches[cuda])[0]}
+        before = dec.launches
+        for t in range(16, 20):
+            nxt = lg["cpu"].argmax(-1).to(torch.int32)[:, None]
+            pos = torch.full((2,), t, dtype=torch.int32)
+            lg = {"cpu": decode_step(cfg, params, nxt, pos, caches["cpu"])[0],
+                  cuda: decode_step(cfg, cparams, nxt.to(cuda), pos.to(cuda), caches[cuda])[0]}
+            np.testing.assert_allclose(lg[cuda].cpu().numpy(), lg["cpu"].numpy(),
+                                       atol=3e-5, rtol=0)
+    assert dec.launches - before == 4 * 2 * cfg.num_layers  # self + cross per layer
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "whisper-small", "olmoe-1b-7b",
+                                  "llama4-maverick-400b-a17b", "jamba-1.5-large-398b"])
+def test_decode_step_never_waits_for_the_card(cuda, arch):
+    """A decode step of the reduced M-RoPE, encoder-decoder, MoE and hybrid
+    configs only queues work on the stream: under
+    ``torch.cuda.set_sync_debug_mode("error")`` anything that makes the host
+    wait for the card (a copy from pageable host memory, ``.item()``, a
+    shape that depends on the data) raises. The first step, which builds
+    and loads the kernels, runs before the mode is set."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+
+    cfg = ARCHS[arch].reduced()
+    params = _to(init_params(cfg, torch.Generator().manual_seed(1), "cpu"), cuda)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16),
+                                                     dtype=np.int32))}
+    enc_len = 12 if cfg.is_encoder_decoder else 0
+    if enc_len:
+        batch["encoder_embeds"] = torch.from_numpy(
+            rng.standard_normal((2, enc_len, cfg.d_model), dtype=np.float32))
+    batch = _to(batch, cuda)
+    positions = [torch.full((2,), t, dtype=torch.int32, device=cuda) for t in range(16, 20)]
+    with torch.inference_mode():
+        cache = init_cache(cfg, 2, 20, enc_len, device=cuda)
+        logits = prefill(cfg, params, batch, cache)[0]
+        logits = decode_step(cfg, params, logits.argmax(-1, keepdim=True).to(torch.int32),
+                             positions[0], cache)[0]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for pos in positions[1:]:
+                tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+                logits = decode_step(cfg, params, tok, pos, cache)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert logits.shape == (2, cfg.vocab_size) and torch.isfinite(logits).all()

@@ -2,7 +2,10 @@
 and the serving step factories, against the port's own full forward (the
 analog of tests/test_models.py::test_decode_matches_forward) and against
 the JAX package's ``prefill`` / ``decode_step`` on the same weights
-(carried over through numpy) and tokens."""
+(carried over through numpy) and tokens, for every family with a decode
+path: dense, Mamba2, MoE, hybrid, M-RoPE and encoder-decoder."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,12 +28,36 @@ from repro_torch.serving import (  # noqa: E402
     cache_shapes, greedy_sample, make_decode_step, make_prefill_step,
 )
 
-ARCHS_DECODE = ["qwen2.5-3b", "qwen3-8b", "mamba2-780m"]
+ZOO = ["olmoe-1b-7b", "llama4-maverick-400b-a17b", "jamba-1.5-large-398b",
+       "whisper-small", "qwen2-vl-72b"]
+ARCHS_DECODE = ["qwen2.5-3b", "qwen3-8b", "mamba2-780m"] + ZOO
 B, S, SP = 2, 24, 16  # tests/test_models.py: batch, full length, prompt length
+ENC = 12  # encoder frames of the whisper cases (tests/test_models.py)
 
 
 def _tokens(cfg, seed=2):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+
+
+def _enc_len(cfg):
+    return ENC if cfg.is_encoder_decoder else 0
+
+
+def _extra(cfg, seed=3):
+    """The batch entries besides the tokens: whisper's encoder embeddings."""
+    if not cfg.is_encoder_decoder:
+        return {}
+    rng = np.random.default_rng(seed)
+    return {"encoder_embeds": rng.standard_normal((B, ENC, cfg.d_model), dtype=np.float32)}
+
+
+def _torch_batch(tokens, extra):
+    return {"tokens": torch.from_numpy(tokens),
+            **{k: torch.from_numpy(v) for k, v in extra.items()}}
+
+
+def _jax_batch(tokens, extra):
+    return {"tokens": jnp.asarray(tokens), **{k: jnp.asarray(v) for k, v in extra.items()}}
 
 
 @pytest.mark.parametrize("arch", ARCHS_DECODE)
@@ -38,11 +65,14 @@ def test_decode_matches_forward(arch):
     """prefill + token-by-token decode reproduces the full-sequence logits
     (tests/test_models.py's property and tolerances, 2e-3 / 1e-3)."""
     cfg = ARCHS[arch].reduced()
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=8.0)  # drop-free
     params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
     toks = torch.from_numpy(_tokens(cfg))
-    full, _ = forward(cfg, params, {"tokens": toks})
-    cache = init_cache(cfg, B, S + 4, device="cpu")
-    lg, cache2, _ = prefill(cfg, params, {"tokens": toks[:, :SP]}, cache)
+    extra = {k: torch.from_numpy(v) for k, v in _extra(cfg).items()}
+    full, _ = forward(cfg, params, {"tokens": toks, **extra})
+    cache = init_cache(cfg, B, S + 4, _enc_len(cfg), device="cpu")
+    lg, cache2, _ = prefill(cfg, params, {"tokens": toks[:, :SP], **extra}, cache)
     assert cache2 is cache  # filled in place
     np.testing.assert_allclose(lg.numpy(), full[:, SP - 1].numpy(), atol=2e-3, rtol=1e-3)
     before = dec.launches
@@ -57,16 +87,26 @@ def test_decode_matches_forward(arch):
 def test_serving_steps_match_jax(arch):
     """The port's prefill and decode steps give the JAX package's logits on
     the same weights and tokens, with greedy sampling fed back (the sampled
-    tokens agree too)."""
-    ref_cfg, cfg = REF_ARCHS[arch].reduced(), ARCHS[arch].reduced()
+    tokens agree too). MoE configs keep their capacity factor: the
+    prefill's drops are the reference's."""
+    _serving_steps_match_jax(arch)
+
+
+def test_whisper_serving_with_a_deeper_encoder_matches_jax():
+    """As above with 3 encoder layers against 2 decoder periods."""
+    _serving_steps_match_jax("whisper-small", encoder_layers=3)
+
+
+def _serving_steps_match_jax(arch, **overrides):
+    ref_cfg, cfg = REF_ARCHS[arch].reduced(**overrides), ARCHS[arch].reduced(**overrides)
     jparams = jax_init_params(ref_cfg, jax.random.PRNGKey(1))
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
-    prompt = _tokens(cfg)[:, :SP]
-    jlg, jcache, _ = jax_prefill(ref_cfg, jparams, {"tokens": jnp.asarray(prompt)},
-                                 jax_init_cache(ref_cfg, B, S))
+    prompt, extra = _tokens(cfg)[:, :SP], _extra(cfg)
+    jlg, jcache, _ = jax_prefill(ref_cfg, jparams, _jax_batch(prompt, extra),
+                                 jax_init_cache(ref_cfg, B, S, _enc_len(cfg)))
     prefill_step, decode = make_prefill_step(cfg), make_decode_step(cfg)
-    lg, cache = prefill_step(params, {"tokens": torch.from_numpy(prompt)},
-                             init_cache(cfg, B, S, device="cpu"))
+    lg, cache = prefill_step(params, _torch_batch(prompt, extra),
+                             init_cache(cfg, B, S, _enc_len(cfg), device="cpu"))
     np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), atol=2e-3, rtol=1e-3)
     for t in range(SP, S):
         nxt, jnxt = greedy_sample(lg), jax_greedy_sample(jlg)
@@ -77,24 +117,38 @@ def test_serving_steps_match_jax(arch):
         jlg, jcache = jax_decode_step(ref_cfg, jparams, jnxt[:, None],
                                       jnp.full((B,), t, jnp.int32), jcache)
         np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), atol=2e-3, rtol=1e-3)
+    assert set(cache) == set(jcache)
     for key, entry in cache.items():  # the caches agree as well
+        assert set(entry) == set(jcache[key])
         for name, leaf in entry.items():
             np.testing.assert_allclose(leaf.float().numpy(),
                                        np.asarray(jcache[key][name], np.float32),
                                        atol=2e-3, rtol=1e-3)
 
 
+def test_cross_cache_of_another_length_raises():
+    """The port fills the cross cache in place, so it must hold the
+    encoder's length (the JAX prefill would replace it)."""
+    cfg = ARCHS["whisper-small"].reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    batch = _torch_batch(_tokens(cfg)[:, :SP], _extra(cfg))
+    with pytest.raises(ValueError, match=f"enc_len={ENC}"):
+        prefill(cfg, params, batch, init_cache(cfg, B, S, ENC + 1, device="cpu"))
+
+
 @pytest.mark.parametrize("arch", ARCHS_DECODE)
 @pytest.mark.parametrize("reduced", [True, False])
 def test_cache_shapes_match_jax(arch, reduced):
     """``cache_shapes`` allocates nothing (meta tensors) and has the JAX
-    package's keys, shapes and dtypes, at the full-width serving size too."""
+    package's keys, shapes and dtypes, at the full-width serving size too
+    (whisper: its cross cache at the encoder's length)."""
     cfg, ref_cfg = ARCHS[arch], REF_ARCHS[arch]
     if reduced:
         cfg, ref_cfg = cfg.reduced(), ref_cfg.reduced()
     batch, max_len = (2, 28) if reduced else (4, 1056)
-    got = cache_shapes(cfg, batch, max_len)
-    want = jax_cache_shapes(ref_cfg, batch, max_len)
+    enc_len = (ENC if reduced else 1500) if cfg.is_encoder_decoder else 0  # 30 s of audio
+    got = cache_shapes(cfg, batch, max_len, enc_len)
+    want = jax_cache_shapes(ref_cfg, batch, max_len, enc_len)
     assert set(got) == set(want)
     for key, entry in got.items():
         assert set(entry) == set(want[key])
