@@ -13,7 +13,9 @@ Phases, one JSON line each:
                  serving shapes (TF32 off), then its device time at the
                  full-width serving shape beside its plain version, one
                  PyTorch library call where one computes the same function
-                 (the yardstick only) and its bound: flash attention (K1),
+                 (the yardstick only) and its bound: flash attention (K1;
+                 its backward kernel too, at the sweep in fp32 and bf16 and
+                 at the training shape, against the plain backward),
                  decode attention (K2, with its number of splits and the
                  host's cost of one call), SSD scan (K3: bf16 initial-state
                  and strided-view cases too, and at full width each of the
@@ -56,7 +58,21 @@ Phases, one JSON line each:
                  SageRuntime in fp32 (K1, and K3 for jamba) against the CPU
                  forward, and the reduced whisper's prefill and decode steps
                  on the card against the CPU's;
-13. the {"kernels": [...]} line, then the contract's last line.
+13. train        qwen2.5-3b trained at full width (36 layers, d_model 2048,
+                 bf16 params and compute, fp32 AdamW state, remat
+                 nothing_saveable, random weights from seed 0) on 4 x 1024
+                 batches of the port's TokenPipeline: 10 steps of
+                 make_train_step (lr 1e-3, warm-up 1, total 10); finite and
+                 falling losses, K1 forward 72 and backward 36 launches a
+                 step; step time, tokens/s, model-FLOP utilisation, peak
+                 memory and a profiled step's device time by part. Then
+                 the checks: every leaf's gradient with the K1 route
+                 against use_kernel=False at depth 2 (fp32 and bf16), the
+                 reduced train_loop with a checkpoint every 3 steps, a
+                 failure at step 4 and a resume (against the uninterrupted
+                 run and the CPU's), and the compressed DP step on a
+                 one-rank NCCL group;
+14. the {"kernels": [...]} line, then the contract's last line.
 
 Each served path sets every kernel's launch count to 0 just before it runs
 and reads the counts just after. Any failed check exits non-zero before the
@@ -66,16 +82,20 @@ and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import importlib.util
 import json
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device; nothing was run")
@@ -85,6 +105,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 
+from repro_torch import tree as T  # noqa: E402
 from repro_torch.api import FunctionSpec, Gateway, TraceWorkload  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core import SageRuntime  # noqa: E402
@@ -94,16 +115,27 @@ from repro_torch.core.functions import (  # noqa: E402
 from repro_torch.core.profiles import MB  # noqa: E402
 from repro_torch.core.telemetry import STAGES  # noqa: E402
 from repro_torch.data.database import Database  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models import decode_step, forward, init_cache, init_params, prefill  # noqa: E402
 from repro_torch.serving import greedy_sample, make_decode_step, make_prefill_step  # noqa: E402
+from repro_torch.training import (  # noqa: E402
+    OptimizerConfig, init_dp_state, init_train_state, make_dp_compressed_step, make_train_step,
+)
+from repro_torch.training.optimizer import adamw_update  # noqa: E402
+from repro_torch.training.steps import _value_and_grad  # noqa: E402
 
-KERNELS = {fa.NAME: fa, dec.NAME: dec, ssd.NAME: ssd}
+KERNELS = {fa.NAME: fa, fab.NAME: fab, dec.NAME: dec, ssd.NAME: ssd}
 # the CUDA functions of those kernels, as the profiler names them
-PORT_KERNEL_NAMES = ("flash_fwd_kernel", "flash_fwd_bf16_kernel", "decode_split_kernel",
+K1_FWD_NAMES = ("flash_fwd_kernel", "flash_fwd_bf16_kernel")
+K1_BWD_NAMES = ("flash_bwd_dot_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+PORT_KERNEL_NAMES = (*K1_FWD_NAMES, *K1_BWD_NAMES, "decode_split_kernel",
                      "decode_combine_kernel", "ssd_kernel", *ssd.STAGES)
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound's rates
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -563,7 +595,8 @@ def forward_launches(cfg) -> dict:
     layer (and per encoder layer and cross attention), K3 once per Mamba2
     layer."""
     enc = cfg.encoder_layers + cfg.num_layers if cfg.is_encoder_decoder else 0
-    return {fa.NAME: cfg.num_attn_layers + enc, dec.NAME: 0, ssd.NAME: cfg.num_mamba_layers}
+    return {fa.NAME: cfg.num_attn_layers + enc, fab.NAME: 0, dec.NAME: 0,
+            ssd.NAME: cfg.num_mamba_layers}
 
 
 def phase_reduced(phase, arch):
@@ -985,7 +1018,8 @@ def phase_decode(arch, kernel_paths, phase="decode", path="", prompt_len=FULL_SE
     rel = [e / s for e, s in zip(errs, scale)]
     want_pre = forward_launches(cfg)
     cross = cfg.num_layers if cfg.is_encoder_decoder else 0
-    want_dec = {fa.NAME: 0, dec.NAME: DECODE_STEPS * (cfg.num_attn_layers + cross), ssd.NAME: 0}
+    want_dec = {fa.NAME: 0, fab.NAME: 0,
+                dec.NAME: DECODE_STEPS * (cfg.num_attn_layers + cross), ssd.NAME: 0}
     emit({"phase": phase, "arch": cfg.name, "batch": FULL_BATCH, "prompt": prompt_len,
           "encoder_frames": enc_len, "moe_capacity_factor": cfg.moe_capacity_factor,
           "steps": DECODE_STEPS, "prefill_ms": prefill_ms, "step_ms": step_ms,
@@ -1096,16 +1130,338 @@ def decode_past_cache():
     check(max(errs) <= 3e-5, f"decode past the cache differs from the CPU: {errs}")
 
 
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 10
+TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 2, 128, True)  # K1 at the train step
+# the JAX train_loop's schedule for 10 steps: warm-up max(steps // 10, 1)
+TRAIN_OPT = OptimizerConfig(lr=1e-3, warmup_steps=max(TRAIN_STEPS // 10, 1),
+                            total_steps=TRAIN_STEPS)
+GEMM_TAGS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")  # cuBLAS's kernel names
+
+
+def grad_tol(dtype, want):
+    """The gradient tolerance, per output: 1e-4 * max(1, max|g|) in fp32,
+    2e-2 * max|g| in bf16 (bf16 rounds the inputs of every product)."""
+    m = want.float().abs().max().item()
+    return 2e-2 * m if dtype == torch.bfloat16 else 1e-4 * max(1.0, m)
+
+
+def attention_bwd_inputs(shape, dtype, seed=0):
+    """q, k, v, dO from a seed, and the forward kernel's output and
+    log-sum-exp for them."""
+    B, Sq, Sk, Hq, Hkv, Dh, causal = shape
+    q, k, v = inputs(shape, dtype, seed)
+    rng = np.random.default_rng(seed + 1)
+    do = torch.from_numpy(rng.standard_normal((B, Sq, Hq, Dh), dtype=np.float32)).to(
+        "cuda", dtype)
+    o, lse = fa._forward(q, k, v, causal, 1.0 / Dh ** 0.5, with_lse=True)
+    return q, k, v, o, lse, do
+
+
+def phase_kernels_bwd():
+    """K1's backward kernel against the plain backward (the same q, k, v,
+    output and dO; the plain log-sum-exp) at the sweep and the serving and
+    training shapes, fp32 and bf16; the forward kernel's log-sum-exp
+    against the plain one; then device time at the training shape."""
+    results, worst, t0 = [], 0.0, time.monotonic()
+    cases = [(s, d) for s in (*REF_SHAPES, REDUCED_SHAPE, TRAIN_SHAPE, *ZOO_SHAPES)
+             for d in (torch.float32, torch.bfloat16)]
+    for shape, dtype in cases:
+        causal = shape[-1]
+        q, k, v, o, lse, do = attention_bwd_inputs(shape, dtype)
+        grads = fab.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        plain_lse = ref.attention_lse(q, k, causal=causal)
+        lse_err = (lse - plain_lse).abs().max().item()
+        plains = ref.flash_attention_bwd(q, k, v, o, plain_lse, do, causal=causal)
+        errs, ok = [], lse_err <= 1e-4 * (1 + plain_lse.abs().max().item())
+        for g, w in zip(grads, plains):
+            err = (g.float() - w.float()).abs().max().item()
+            errs.append(err)
+            ok = ok and err <= grad_tol(dtype, w) and bool(torch.isfinite(g).all().item())
+        results.append({"shape": list(shape), "dtype": str(dtype).split(".")[1],
+                        "max_abs_err_dq_dk_dv": errs, "lse_max_abs_err": lse_err, "ok": ok})
+        check(ok, f"flash_attention_bwd disagrees at {shape} {dtype}: {errs}, lse {lse_err}")
+        worst = max(worst, *errs)
+        del q, k, v, o, lse, do, grads, plains
+    emit({"phase": "kernels", "kernel": fab.NAME, "cases": results,
+          "tol": "1e-4 * max(1, max|g|) fp32, 2e-2 * max|g| bf16, per output",
+          "seconds": time.monotonic() - t0})
+    t0 = time.monotonic()
+
+    dtype = torch.bfloat16
+    q, k, v, o, lse, do = attention_bwd_inputs(TRAIN_SHAPE, dtype)
+    G = TRAIN_SHAPE[3] // TRAIN_SHAPE[4]
+    # the yardstick: SDPA's forward+backward minus its forward, GQA expanded
+    # outside the timed calls
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (
+        q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
+    dot = do.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot)
+
+    def lib_fwd():
+        with torch.no_grad():
+            sdpa(qt, kt, vt, is_causal=True)
+
+    kern = lambda: fab.flash_attention_bwd(q, k, v, o, lse, do, causal=True)  # noqa: E731
+    plain = lambda: ref.flash_attention_bwd(q, k, v, o, lse, do, causal=True)  # noqa: E731
+    for fn in (kern, plain, lib_fwd_bwd, lib_fwd):  # first calls (SDPA's backward sets
+        fn()                                        # itself up) before time_ms sizes its sleep
+    torch.cuda.synchronize()
+    timing = {
+        "plain_ms": time_ms(plain, reps=3, inner=3),
+        "ms": time_ms(kern),
+        "library_fwd_bwd_ms": time_ms(lib_fwd_bwd),
+        "library_fwd_ms": time_ms(lib_fwd),
+    }
+    timing["library_ms"] = timing["library_fwd_bwd_ms"] - timing["library_fwd_ms"]
+    timing["ms_again"] = time_ms(kern)
+    _, _, fwd_flops, _ = attention_bound_ms(TRAIN_SHAPE, dtype)
+    B, Sq, Sk, Hq, Hkv, Dh, _ = TRAIN_SHAPE
+    flops = 2.5 * fwd_flops  # five (query, key) products against the forward's two
+    elt = torch.finfo(dtype).bits / 8
+    # q, o, dO read and dq written; k, v read and dk, dv written; lse read
+    nbytes = elt * (4 * B * Sq * Hq * Dh + 4 * B * Sk * Hkv * Dh) + 4 * B * Hq * Sq
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    emit({"phase": "kernel_timing", "kernel": fab.NAME, "shape": list(TRAIN_SHAPE),
+          "dtype": "bfloat16", **timing, "bound_ms": bound_ms, "bound_by": bound_by,
+          "flops": flops, "bytes": nbytes,
+          "library": "scaled_dot_product_attention forward+backward minus its forward, "
+          "GQA expanded outside the timed call", "tflops": flops / timing["ms"] / 1e9,
+          "seconds": time.monotonic() - t0})
+    del q, k, v, o, lse, do, qt, kt, vt
+    return {"max_abs_err": worst, **timing, "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": list(TRAIN_SHAPE)}
+
+
+def model_flops(cfg, batch, seq):
+    """(dense, attention) FLOPs of one train step's useful work: 6 per
+    parameter per token, and 3 x the causal attention forward's products
+    per attention layer (no recompute counted)."""
+    dense = 6.0 * cfg.param_count() * batch * seq
+    shape = (batch, seq, seq, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, True)
+    attn = 3.0 * attention_bound_ms(shape, torch.bfloat16)[2] * cfg.num_attn_layers
+    return dense, attn
+
+
+def step_breakdown(cfg, state, batch):
+    """One step's device time by part: the forward and backward
+    (``_value_and_grad``) profiled, split by kernel name into K1 forward,
+    K1 backward, GEMMs and the rest (elementwise, reductions, copies), then
+    the AdamW update profiled alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    parts = dict.fromkeys(("k1_forward", "k1_backward", "gemm", "elementwise_other",
+                           "optimizer"), 0.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        metrics, grads = _value_and_grad(cfg, state["params"], batch)
+        torch.cuda.synchronize()
+        fb_wall = time.monotonic() - t0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        t = e.self_device_time_total / 1e3
+        name = e.key.lower()
+        if any(tag in e.key for tag in K1_FWD_NAMES):
+            parts["k1_forward"] += t
+        elif any(tag in e.key for tag in K1_BWD_NAMES):
+            parts["k1_backward"] += t
+        elif any(tag in name for tag in GEMM_TAGS):
+            parts["gemm"] += t
+        else:
+            parts["elementwise_other"] += t
+    top = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: -e.self_device_time_total)[:8]
+    grads = T.unflatten(state["params"], grads)
+    _, opt_prof = profiled(lambda: adamw_update(TRAIN_OPT, grads, state["opt"], state["params"]))
+    parts["optimizer"] = opt_prof["device_busy_ms"]
+    del grads
+    return {"device_ms": parts, "device_busy_ms": sum(parts.values()),
+            "forward_backward_wall_ms": fb_wall * 1e3,
+            "optimizer_wall_ms": opt_prof["profiled_wall_ms"],
+            "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top],
+            "loss": float(metrics["loss"])}
+
+
+def phase_train():
+    """qwen2.5-3b trained at full width: 10 steps of ``make_train_step`` on
+    the pipeline's 4 x 1024 batches (the main path: counts reset just
+    before, read just after), then one more step profiled by part.
+    Returns the launches by kernel."""
+    cfg = ARCHS[TRAIN_ARCH]
+    check(cfg.param_dtype == cfg.compute_dtype == "bfloat16", "full width is bf16")
+    check(cfg.remat_policy == "nothing_saveable", f"remat {cfg.remat_policy}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    state = init_train_state(cfg, TRAIN_OPT, torch.Generator("cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      (*T.leaves(state["params"]), *T.leaves(state["opt"])))
+    data = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in data.batch_at(i).items()}
+               for i in range(TRAIN_STEPS + 1)]
+    step = make_train_step(cfg, TRAIN_OPT)
+    losses, gnorms, step_s, per_step = [], [], [], []
+    torch.cuda.synchronize()
+    reset_counts()  # -- the train path starts here
+    for i in range(TRAIN_STEPS):
+        before = counts()
+        t0 = time.monotonic()
+        state, met = step(state, batches[i])
+        losses.append(float(met["loss"]))  # waits for the step
+        step_s.append(time.monotonic() - t0)
+        gnorms.append(float(met["grad_norm"]))
+        per_step.append({n: c - before[n] for n, c in counts().items()})
+    launches = counts()  # -- and ends here
+    peak = torch.cuda.max_memory_allocated()
+    breakdown = step_breakdown(cfg, state, batches[TRAIN_STEPS])
+    step_med = statistics.median(step_s[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    dense, attn = model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    del state, batches, met
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {fa.NAME: 2 * cfg.num_attn_layers, fab.NAME: cfg.num_attn_layers,
+            dec.NAME: 0, ssd.NAME: 0}
+    emit({"phase": "train", "arch": cfg.name, "params": cfg.param_count(),
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+          "optimizer": dataclasses.asdict(TRAIN_OPT), "remat": cfg.remat_policy,
+          "init_s": init_s, "state_bytes": state_bytes, "losses": losses,
+          "grad_norms": gnorms, "step_s": step_s, "step_s_median_2_10": step_med,
+          "tokens_per_s": tokens / step_med, "model_flops_dense": dense,
+          "model_flops_attention": attn, "mfu_vs_989_tflops": (dense + attn) / step_med / 989e12,
+          "max_memory_allocated": peak, "memory_allocated_before": base_alloc,
+          "launches": launches, "launches_per_step": per_step, "profiled_step": breakdown})
+    check(all(np.isfinite(x) for x in losses + gnorms), f"train: not finite {losses} {gnorms}")
+    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    check(per_step == [want] * TRAIN_STEPS, f"train: launches per step {per_step} != {want}")
+    check(peak < 80e9, f"train: peak memory {peak}")
+    return launches
+
+
+def train_grad_check():
+    """Every leaf's gradient of lm_loss with the K1 route against the same
+    with use_kernel=False, qwen2.5-3b's widths at depth 2, fp32 (TF32 off)
+    and bf16, on one pipeline batch; the attention projections' gradients
+    are not zero (K1's output carries a gradient). A comparison: its
+    launches are not a path."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(ARCHS[TRAIN_ARCH], num_layers=2, param_dtype=dtype,
+                                  compute_dtype=dtype)
+        params = init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+        data = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(0).items()}
+        before = fab.launches
+        met, got = _value_and_grad(cfg, params, batch)
+        check(fab.launches == before + cfg.num_layers, "the K1 route ran no backward kernel")
+        kernel_route = ops.flash_attention
+        ops.flash_attention = functools.partial(kernel_route, use_kernel=False)
+        try:
+            pmet, want = _value_and_grad(cfg, params, batch)
+        finally:
+            ops.flash_attention = kernel_route
+        worst, per_leaf, ok = 0.0, {}, True
+        for (key, _), g, w in zip(T.items(params), got, want):
+            err = (g.float() - w.float()).abs().max().item()
+            rel = err / max(w.float().abs().max().item(), 1e-30)
+            per_leaf[key] = [err, rel]
+            ok = ok and err <= grad_tol(getattr(torch, dtype), w)
+            worst = max(worst, rel)
+        proj = {key: g.float().abs().max().item() for (key, _), g in zip(T.items(params), got)
+                if key.split("/")[-1] in ("wq", "wk", "wv")}
+        out[dtype] = {"loss": float(met["loss"]), "plain_loss": float(pmet["loss"]),
+                      "worst_rel_err": worst, "per_leaf": per_leaf,
+                      "attention_projection_max_abs_grad": proj}
+        check(ok, f"train grads ({dtype}) differ from use_kernel=False: {per_leaf}")
+        check(all(v > 0 for v in proj.values()), f"zero attention gradients: {proj}")
+        del params, got, want, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "train", "check": "grads_vs_use_kernel_false", "depth": 2,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "results": out,
+          "tol": "1e-4 * max(1, max|g|) fp32, 2e-2 * max|g| bf16, per leaf"})
+
+
+def train_reduced():
+    """The reduced qwen2.5-3b (fp32, batch 2 x 16) through ``train_loop``
+    on the card: 6 steps with a checkpoint every 3; a failure injected at
+    step 4 and a resume, whose losses equal the uninterrupted run's and
+    the CPU's (rtol 1e-4); then the compressed DP step on a one-rank NCCL
+    group for 3 steps (the loss falls, as tests/test_training.py holds).
+    Returns the card's launches over these runs."""
+    kw = dict(steps=6, ckpt_every=3, global_batch=2, seq_len=16, log_every=100)
+    reset_counts()  # -- the reduced training path starts here
+    with tempfile.TemporaryDirectory() as tmp:
+        _, full, _ = train_loop(TRAIN_ARCH, ckpt_dir=f"{tmp}/a", device="cuda", **kw)
+        try:
+            train_loop(TRAIN_ARCH, ckpt_dir=f"{tmp}/b", device="cuda", fail_at_step=4, **kw)
+            failed = False
+        except RuntimeError:
+            failed = True
+        _, resumed, _ = train_loop(TRAIN_ARCH, ckpt_dir=f"{tmp}/b", device="cuda", **kw)
+        launches = counts()
+        _, cpu, _ = train_loop(TRAIN_ARCH, ckpt_dir=f"{tmp}/c", device="cpu", **kw)
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0)
+    try:
+        cfg = ARCHS[TRAIN_ARCH].reduced()
+        opt = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=20, min_lr_ratio=1.0)
+        state = init_dp_state(cfg, opt, torch.Generator().manual_seed(0), "cuda")
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 16), dtype=np.int32)).cuda()
+        step = make_dp_compressed_step(cfg, opt)
+        dp_losses = []
+        before = counts()
+        for _ in range(3):
+            state, met = step(state, {"tokens": toks})
+            dp_losses.append(float(met["loss"]))
+        for n, c in counts().items():
+            launches[n] += c - before[n]
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "train", "check": "reduced_loop_resume_and_dp", "arch": cfg.name,
+          "losses_uninterrupted": full, "losses_resumed": resumed, "losses_cpu": cpu,
+          "injected_failure_raised": failed, "dp_nccl_one_rank_losses": dp_losses,
+          "launches": launches, "rtol": 1e-4})
+    check(failed, "the injected failure did not raise")
+    check(len(resumed) == 3 and np.allclose(resumed, full[-3:], rtol=1e-4, atol=0),
+          f"resumed losses {resumed} != {full[-3:]}")
+    check(np.allclose(full, cpu, rtol=1e-4, atol=0), f"card losses {full} != CPU {cpu}")
+    check(dp_losses[-1] < dp_losses[0], f"DP losses did not fall: {dp_losses}")
+    return launches
+
+
 def main():
     t_start = time.monotonic()
     smi = phase_card()
     phase_build()
-    timings = {fa.NAME: phase_kernels(), dec.NAME: phase_kernels_decode(),
-               ssd.NAME: phase_kernels_ssd()}
+    timings = {fa.NAME: phase_kernels(), fab.NAME: phase_kernels_bwd(),
+               dec.NAME: phase_kernels_decode(), ssd.NAME: phase_kernels_ssd()}
     paths = {name: dict.fromkeys(("reduced", "full_width", "mamba_reduced", "mamba_full",
                                   "gateway", "prefill", "decode", "moe_full", "moe_prefill",
                                   "moe_decode", "whisper_prefill", "whisper_decode",
-                                  "zoo_reduced"), 0) for name in KERNELS}
+                                  "zoo_reduced", "train", "train_reduced"), 0)
+             for name in KERNELS}
 
     def add(path, launches):
         for name, n in launches.items():
@@ -1124,9 +1480,14 @@ def main():
                  prompt_len=WHISPER_PROMPT)
     decode_past_cache()
     add("zoo_reduced", phase_zoo_reduced())
-    main_path = {fa.NAME: "full_width", dec.NAME: "decode", ssd.NAME: "mamba_full"}
+    add("train", phase_train())
+    train_grad_check()
+    add("train_reduced", train_reduced())
+    main_path = {fa.NAME: "full_width", fab.NAME: "train", dec.NAME: "decode",
+                 ssd.NAME: "mamba_full"}
     replaces = {
         fa.NAME: "src/repro/kernels/flash_attention.py:37",
+        fab.NAME: "jax.grad of src/repro/models/layers.py:164",
         dec.NAME: "src/repro/kernels/decode_attention.py:29",
         ssd.NAME: "src/repro/kernels/ssd_scan.py:38",
     }
@@ -1135,7 +1496,8 @@ def main():
     for name, path in ((fa.NAME, "gateway"), (fa.NAME, "moe_full"), (dec.NAME, "moe_decode"),
                        (fa.NAME, "whisper_prefill"), (dec.NAME, "whisper_decode"),
                        (fa.NAME, "zoo_reduced"), (dec.NAME, "zoo_reduced"),
-                       (ssd.NAME, "zoo_reduced")):
+                       (ssd.NAME, "zoo_reduced"), (fa.NAME, "train"),
+                       (fa.NAME, "train_reduced"), (fab.NAME, "train_reduced")):
         check(paths[name][path] > 0, f"{name} never launched on the {path} path")
     emit({"phase": "wall", "seconds": time.monotonic() - t_start})
     emit({"kernels": [{

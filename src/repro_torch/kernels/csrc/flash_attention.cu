@@ -75,6 +75,11 @@
 //   * Left for later: wgmma with TMA loads and a producer warp (Hopper's
 //     own path to the full tensor-core rate).
 //
+// Training: given a non-null ``lse``, both kernels also write each row's
+// log-sum-exp of the scaled scores, fp32 (B, Hq, Sq), natural log: the
+// backward (flash_attention_bwd.cu) recomputes P = exp(S * scale - lse)
+// from it. Serving passes null and keeps its launches and its speed.
+//
 // Plain C interface (built with nvcc into a shared library, loaded through
 // ctypes): flash_attention_fwd(...) launches on the given stream, never
 // synchronises, and returns cudaGetLastError() after the launch. The bf16
@@ -118,7 +123,7 @@ template <typename T, int DH> struct Layout {
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                  int Sq, int Sk, int Hq, int Hkv, float scale, int causal) {
   using L = Layout<T, DH>;
   constexpr int S = L::kStride;
@@ -260,6 +265,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + r / G;
     if (r >= rows_used || qpos >= Sq) continue;
     const float inv = 1.f / fmaxf(l_i[i], 1e-30f);
+    if (lse != nullptr && tc == 0)  // m and l are the row's in every lane
+      lse[(static_cast<int64_t>(b) * Hq + h * G + r % G) * Sq + qpos] =
+          m_i[i] + logf(fmaxf(l_i[i], 1e-30f));
     const int64_t base = ((static_cast<int64_t>(b) * Sq + qpos) * Hq + h * G + r % G) * DH;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) o[base + tc + 8 * j] = from_float<T>(acc[i][j] * inv);
@@ -275,6 +283,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kBlockK = 64;    // keys per k tile
 constexpr int kStages = 2;     // K/V tiles in the cp.async ring
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 using bf16 = __nv_bfloat16;
 
@@ -287,8 +296,9 @@ template <int DH> struct Layout {
 template <int DH>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Sk,
-                      int Hq, int Hkv, float scale_log2, int causal) {
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
+                      float scale_log2, int causal) {
   using L = Layout<DH>;
   constexpr int C = L::kChunks;
   constexpr int KD = DH / 16;      // k16 steps of Q K^T over the head dim
@@ -478,6 +488,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = r_lo + 8 * i;
     if (r >= rows_used || qpos[i] >= Sq) continue;
     const float inv = 1.f / fmaxf(l, 1e-30f);
+    if (lse != nullptr && (lane & 3) == 0)  // m is in log2 units: back to natural
+      lse[(static_cast<int64_t>(b) * Hq + h * G + r % G) * Sq + qpos[i]] =
+          (m_i[i] + log2f(fmaxf(l, 1e-30f))) * kLn2;
     bf16* row = o + ((static_cast<int64_t>(b) * Sq + qpos[i]) * Hq + h * G + r % G) * DH;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
@@ -487,8 +500,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                   int Sk, int Hq, int Hkv, float scale, int causal, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int Sq, int Sk, int Hq, int Hkv, float scale, int causal,
+                   cudaStream_t stream) {
   using L = Layout<DH>;
   auto kern = flash_fwd_bf16_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -498,18 +512,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   dim3 grid(B * Hkv, (Sq + bq - 1) / bq);
   kern<<<grid, kThreads, L::kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), Sq, Sk, Hq, Hkv, scale * kLog2e, causal);
+      static_cast<bf16*>(o), lse, Sq, Sk, Hq, Hkv, scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                        int Sk, int Hq, int Hkv, int Dh, float scale, int causal,
-                        cudaStream_t stream) {
+cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int B, int Sq, int Sk, int Hq, int Hkv, int Dh, float scale,
+                        int causal, cudaStream_t stream) {
   switch (Dh) {
-    case 16: return launch<16>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
-    case 32: return launch<32>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
-    case 64: return launch<64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
-    case 128: return launch<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
+    case 16: return launch<16>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
+    case 32: return launch<32>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
+    case 64: return launch<64>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
+    case 128: return launch<128>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -517,7 +531,7 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o, in
 }  // namespace tc
 
 template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int Sq, int Sk, int Hq, int Hkv, float scale, int causal,
                    cudaStream_t stream) {
   using L = Layout<T, DH>;
@@ -529,19 +543,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((Sq + bq - 1) / bq, Hkv, B);
   kern<<<grid, kThreads, L::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, Hq, Hkv, scale, causal);
+      static_cast<T*>(o), lse, Sq, Sk, Hq, Hkv, scale, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o, int B,
-                        int Sq, int Sk, int Hq, int Hkv, int Dh, float scale,
+cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int B, int Sq, int Sk, int Hq, int Hkv, int Dh, float scale,
                         int causal, cudaStream_t stream) {
   switch (Dh) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -549,18 +564,19 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o, in
 }  // namespace
 
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel).
-// All tensors contiguous (B, S, H, Dh), 16-byte aligned for bf16.
+// All tensors contiguous (B, S, H, Dh), 16-byte aligned for bf16; lse is
+// null or fp32 (B, Hq, Sq).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int B, int Sq, int Sk, int Hq, int Hkv, int Dh,
+                                   float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int Dh,
                                    int dtype, float scale, int causal, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kRows)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_dh<float>(q, k, v, o, B, Sq, Sk, Hq, Hkv, Dh, scale, causal, st);
+    err = dispatch_dh<float>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, Dh, scale, causal, st);
   else if (dtype == 1)
-    err = tc::dispatch_dh(q, k, v, o, B, Sq, Sk, Hq, Hkv, Dh, scale, causal, st);
+    err = tc::dispatch_dh(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, Dh, scale, causal, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

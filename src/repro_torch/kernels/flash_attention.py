@@ -18,6 +18,13 @@ start on a 16-byte boundary, and raises on anything else; it never falls
 back to the plain version. Outputs
 are allocated here; the kernel runs on the current stream and nothing
 synchronises. ``launches`` counts kernel launches (and nothing else).
+
+Gradients: when grad mode is on and q, k or v requires grad, the call goes
+through ``FlashAttention``, a ``torch.autograd.Function``: its forward
+launches the same kernel, which then also writes each row's log-sum-exp,
+and saves q, k, v, the output and the log-sum-exp; its backward is the
+hand-written backward kernel (``kernels.flash_attention_bwd``). Otherwise
+(serving) the kernel is launched as it was, with no log-sum-exp.
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load(NAME).flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -88,6 +95,50 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k, v must be CUDA tensors on one device")
 
 
+def _forward(q, k, v, causal: bool, scale: float, with_lse: bool):
+    """Launch the forward kernel: (out, the fp32 (B, Hq, Sq) log-sum-exp or
+    None)."""
+    global launches
+    B, Sq, Hq, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    fn = _kernel()
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if with_lse else None,
+                 B, Sq, Sk, Hq, Hkv, Dh, DTYPES[q.dtype], float(scale),
+                 int(bool(causal)), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    with _count_lock:  # the runtime's executor threads may launch concurrently
+        launches += 1
+    return out, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 with a gradient: the forward kernel (with its log-sum-exp) and the
+    hand-written backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        out, lse = _forward(q, k, v, causal, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels import flash_attention_bwd as _bwd  # imports this module
+
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd.flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                              causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, Hq, Dh)
     k: torch.Tensor,  # (B, Sk, Hkv, Dh)
@@ -98,23 +149,12 @@ def flash_attention(
     block_k: int = 512,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Attention forward on the card. ``block_q``/``block_k`` are accepted
-    for the JAX signature; the kernel picks its own tiles."""
-    global launches
+    """Attention forward on the card, differentiable when a gradient is
+    being taken. ``block_q``/``block_k`` are accepted for the JAX
+    signature; the kernel picks its own tiles."""
     del block_q, block_k
     check_inputs(q, k, v)
-    B, Sq, Hq, Dh = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
-    fn = _kernel()
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, Sq, Sk, Hq, Hkv, Dh, DTYPES[q.dtype], float(scale),
-                 int(bool(causal)), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
-    with _count_lock:  # the runtime's executor threads may launch concurrently
-        launches += 1
-    return out
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, bool(causal), scale)
+    return _forward(q, k, v, causal, scale, with_lse=False)[0]

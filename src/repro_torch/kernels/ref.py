@@ -9,6 +9,9 @@
   query token per sequence against a KV cache in one dense masked pass.
   ``decode_attention_split`` computes the same in the CUDA kernel's split-K
   order (per-split partials, then one merge); only the tests use it.
+* ``flash_attention_bwd`` is FlashAttention-2's backward from the
+  forward's output and log-sum-exp (``attention_lse``), the plain version
+  of K1's backward kernel; only the tests and ``chip_smoke.py`` use it.
 * ``ssd_scan`` is ``repro.models.mamba2.ssd_chunked_ref`` (with
   ``_segsum``): Mamba2's chunked SSD scan with an optional initial state.
 
@@ -128,6 +131,53 @@ def flash_attention(
         outs.append(_combine_partials(parts))
     out = torch.cat(outs, dim=1)
     return out.reshape(B, Sq, Hq, Dh).to(q.dtype)
+
+
+def _scores(q, k, *, causal, scale):
+    """Scaled scores (B, Sq, Hkv, G, Sk) fp32, masked entries -inf (the
+    top-left causal mask), and q reshaped to (B, Sq, Hkv, G, Dh)."""
+    B, Sq, Hq, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Sq, Hkv, Hq // Hkv, Dh)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k.float()) * scale
+    if causal:
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        s = torch.where(mask[None, :, None, None, :], s, float("-inf"))
+    return s, qg
+
+
+def attention_lse(q, k, *, causal, scale=None) -> torch.Tensor:
+    """Each row's log-sum-exp of the scaled, masked scores, fp32 (B, Hq, Sq):
+    what the K1 forward kernel writes for the backward."""
+    B, Sq, Hq, Dh = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    s, _ = _scores(q, k, causal=causal, scale=scale)
+    return torch.logsumexp(s, dim=-1).reshape(B, Sq, Hq).permute(0, 2, 1).contiguous()
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal, scale=None):
+    """FlashAttention-2's backward, step by step, in fp32: D = rowsum(dO o O);
+    P = exp(S * scale - lse); dV = P^T dO; dP = dO V^T; dS = P o (dP - D);
+    dQ = scale * dS K; dK = scale * dS^T Q, GQA's group summed into dK, dV.
+    ``lse`` is fp32 (B, Hq, Sq). Returns (dq, dk, dv) in the inputs'
+    dtypes. The backward kernel computes the same; nothing on the card's
+    path calls this."""
+    B, Sq, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    s, qg = _scores(q, k, causal=causal, scale=scale)
+    rows = lse.float().permute(0, 2, 1).reshape(B, Sq, Hkv, G)
+    p = torch.exp(s - rows[..., None])  # exp(-inf) = 0 where masked
+    dog = do.float().reshape(B, Sq, Hkv, G, Dh)
+    dot = (dog * o.float().reshape(B, Sq, Hkv, G, Dh)).sum(-1)
+    dv = torch.einsum("bqhgk,bqhgd->bkhd", p, dog)
+    dp = torch.einsum("bqhgd,bkhd->bqhgk", dog, v.float())
+    ds = p * (dp - dot[..., None])
+    dq = torch.einsum("bqhgk,bkhd->bqhgd", ds, k.float()) * scale
+    dk = torch.einsum("bqhgk,bqhgd->bkhd", ds, qg) * scale
+    return dq.reshape(B, Sq, Hq, Dh).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention(

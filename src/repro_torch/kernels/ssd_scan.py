@@ -185,8 +185,18 @@ def ssd_scan(
     chunk: int = 128,
     initial_state: Optional[torch.Tensor] = None,  # (B, H, P, N) fp32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The chunked SSD scan on the card. Returns (y, final_state)."""
+    """The chunked SSD scan on the card. Returns (y, final_state).
+
+    The kernel has no backward yet: under grad mode an input that requires
+    grad raises ``NotImplementedError`` (the output would carry no
+    gradient to it). Mamba2 and jamba train on the CPU, where the plain
+    version is differentiable."""
     global launches
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, initial_state)):
+        raise NotImplementedError(
+            "the SSD scan kernel (K3) has no backward yet, so Mamba2 and jamba cannot "
+            "train on the card: ROADMAP Queue 1, 'K3's backward'")
     strides = check_inputs(x, dt, A, Bm, Cm, initial_state)
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]

@@ -17,7 +17,10 @@ import torch
 from repro_torch.data.database import resolve_device
 
 
-def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
+def tensor_from_numpy(a: np.ndarray, device="cuda") -> torch.Tensor:
+    """One array as a tensor on ``device`` (the card unless the caller asks
+    for the CPU), bf16 carried over as its 16-bit pattern."""
+    device = resolve_device(device)
     a = np.array(a)  # own, writable, contiguous copy
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)

@@ -6,10 +6,16 @@ Params and the period stack keep the JAX layout: ``params["layers"]`` holds
 and so does every leaf of a decode cache; the encoder's stack
 (``params["enc_layers"]``) leads with ``encoder_layers`` instead. The JAX
 package scans over that axis with ``lax.scan``; here a Python loop indexes
-the stacked leaves with ``[i]``, as many times as the stack's own leading
-size. Rematerialisation and activation sharding (``_maybe_remat``,
-``constrain``) do nothing when serving on one device and are not carried
-over.
+the stacked leaves, as many times as the stack's own leading size: each
+stacked leaf is split once with ``torch.unbind`` (views), so autograd
+stacks its gradient in one allocation. Rematerialisation follows
+``cfg.remat_policy`` as ``_maybe_remat`` does there, through
+``torch.utils.checkpoint`` (non-reentrant) around each period, and only
+while a gradient is being taken: ``nothing_saveable`` keeps each period's
+input alone and recomputes the rest in the backward, ``dots_saveable``
+also keeps the matrix products' outputs, ``none`` keeps everything.
+Serving (no gradient) runs the plain loop. Activation sharding
+(``constrain``) does nothing on one device and is not carried over.
 
 The JAX cache is immutable and every step returns a new one; here
 ``prefill`` and ``decode_step`` write into the ``[period]`` views of the
@@ -19,10 +25,13 @@ prefill replaces it with whatever length the encoder gives.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
+from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig, SublayerSpec
 from repro_torch.data.database import resolve_device
 from repro_torch.models import layers as L
@@ -93,11 +102,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> 
 # ---------------------------------------------------------------------------
 
 
-def _index(tree, i: int):
-    """The ``i``-th period of a stacked subtree (views of the same storage)."""
+def _unstack(tree, n: int) -> List[Any]:
+    """The ``n`` periods of a stacked subtree, each a tree of views of the
+    same storage. One ``unbind`` per leaf: its backward stacks the
+    periods' gradients in one allocation, where ``leaf[i]`` per period
+    would give each period a full-size zero gradient of the whole stack."""
     if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return torch.unbind(tree, 0)
 
 
 def _depth(tree) -> int:
@@ -187,20 +200,62 @@ def _apply_sublayer_step(cfg: ModelConfig, spec: SublayerSpec, p: dict,
 # ---------------------------------------------------------------------------
 
 
+def _apply_period_full(cfg: ModelConfig, specs, pp: dict, h: torch.Tensor, *,
+                       positions, causal: bool, enc: Optional[torch.Tensor] = None,
+                       cc: Optional[dict] = None):
+    """One period's sublayers over a full sequence; returns (h, aux summed
+    over them: 0.0 for a period without MoE)."""
+    aux = 0.0  # a tensor from the first MoE sublayer on: no launch per dense one
+    for i, spec in enumerate(specs):
+        h, a = _apply_sublayer_full(cfg, spec, pp[f"sub{i}"], h, positions=positions,
+                                    causal=causal, enc=enc,
+                                    cache=cc[f"sub{i}"] if cc is not None else None)
+        aux = aux + a
+    return h, aux
+
+
+# the matrix products whose outputs ``dots_saveable`` keeps (``@`` and
+# ``einsum`` reach these), as JAX's ``checkpoint_policies.dots_saveable``
+# keeps dot_general's
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, h: torch.Tensor, stack_params: dict):
+    """``checkpoint`` for each period under ``cfg.remat_policy``, or None
+    (policy ``none``, or no gradient is being taken)."""
+    if cfg.remat_policy == "none" or not torch.is_grad_enabled():
+        return None
+    if not (h.requires_grad or any(t.requires_grad for t in T.leaves(stack_params))):
+        return None
+    if cfg.remat_policy == "dots_saveable":
+        keep_dots = functools.partial(ckpt.create_selective_checkpoint_contexts, _dots_policy)
+        return functools.partial(ckpt.checkpoint, use_reentrant=False, context_fn=keep_dots)
+    return functools.partial(ckpt.checkpoint, use_reentrant=False)
+
+
 def _run_stack_full(cfg: ModelConfig, stack_params: dict, specs, h, *,
                     positions, causal: bool, enc: Optional[torch.Tensor] = None,
                     cache_stack: Optional[dict] = None):
     """Every period of the stack over a full sequence; returns (h, the aux
     losses summed over sublayers, a 0-d fp32 tensor)."""
-    aux = 0.0  # a tensor from the first MoE sublayer on: no launch per dense one
-    for period in range(_depth(stack_params)):
-        pp = _index(stack_params, period)
-        cc = _index(cache_stack, period) if cache_stack is not None else None
-        for i, spec in enumerate(specs):
-            h, a = _apply_sublayer_full(cfg, spec, pp[f"sub{i}"], h, positions=positions,
-                                        causal=causal, enc=enc,
-                                        cache=cc[f"sub{i}"] if cc is not None else None)
-            aux = aux + a
+    depth = _depth(stack_params)
+    periods = _unstack(stack_params, depth)
+    caches = _unstack(cache_stack, depth) if cache_stack is not None else [None] * depth
+    remat = _remat(cfg, h, stack_params) if cache_stack is None else None
+    aux = 0.0
+    for pp, cc in zip(periods, caches):
+        kw = dict(positions=positions, causal=causal, enc=enc, cc=cc)
+        if remat is None:
+            h, a = _apply_period_full(cfg, specs, pp, h, **kw)
+        else:
+            h, a = remat(_apply_period_full, cfg, specs, pp, h, **kw)
+        aux = aux + a
     if not torch.is_tensor(aux):
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h, aux
@@ -208,9 +263,8 @@ def _run_stack_full(cfg: ModelConfig, stack_params: dict, specs, h, *,
 
 def _run_stack_step(cfg: ModelConfig, stack_params: dict, specs, h, cache_stack, *,
                     positions) -> torch.Tensor:
-    for period in range(_depth(stack_params)):
-        pp = _index(stack_params, period)
-        cc = _index(cache_stack, period)
+    depth = _depth(stack_params)
+    for pp, cc in zip(_unstack(stack_params, depth), _unstack(cache_stack, depth)):
         for i, spec in enumerate(specs):
             h = _apply_sublayer_step(cfg, spec, pp[f"sub{i}"], h, cc[f"sub{i}"],
                                      positions=positions)

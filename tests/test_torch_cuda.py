@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
@@ -519,3 +520,131 @@ def test_decode_step_never_waits_for_the_card(cuda, arch):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert logits.shape == (2, cfg.vocab_size) and torch.isfinite(logits).all()
+
+
+# ---------------------------------------------------------------------------
+# training: K1's backward, K3's guard, train steps on the card
+# ---------------------------------------------------------------------------
+
+
+def _grad_tol(dtype, want):
+    """1e-4 * max(1, max|g|) for fp32, 2e-2 * max|g| for bf16, per output."""
+    m = want.float().abs().max().item()
+    return 2e-2 * m if dtype == torch.bfloat16 else 1e-4 * max(1.0, m)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,Dh,causal", SHAPES)
+def test_flash_backward_kernel_matches_plain(cuda, dtype, B, Sq, Sk, Hq, Hkv, Dh, causal):
+    """K1 under autograd: the forward kernel's log-sum-exp against the plain
+    one, and the backward kernel's dq, dk, dv against
+    ``ref.flash_attention_bwd`` on the same q, k, v, output and dO."""
+    rng = np.random.default_rng(0)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(cuda, dt)
+                   for s in ((B, Sq, Hq, Dh), (B, Sk, Hkv, Dh), (B, Sk, Hkv, Dh),
+                             (B, Sq, Hq, Dh)))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = (fa.launches, fab.launches)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (fa.launches, fab.launches) == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        plain_out = ops.flash_attention(q, k, v, causal=causal, use_kernel=False)
+        tol = 2e-2 if dtype == "bfloat16" else 3e-5
+        assert (out.float() - plain_out.float()).abs().max().item() <= tol * (
+            1 + plain_out.float().abs().max().item())
+        lse = ref.attention_lse(q, k, causal=causal)
+        _, got_lse = fa._forward(q, k, v, causal, 1.0 / Dh ** 0.5, with_lse=True)
+        assert (got_lse - lse).abs().max().item() <= 1e-4 * (1 + lse.abs().max().item())
+        want = ref.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    for name, g, w in zip("qkv", grads, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= _grad_tol(dt, w), f"d{name}: {err}"
+        assert w.float().abs().max().item() > 0
+
+
+@pytest.mark.requires_cuda
+def test_flash_backward_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 16, 4, 16), device=cuda)
+    k = torch.zeros((1, 16, 2, 16), device=cuda)
+    lse = torch.zeros((1, 4, 16), device=cuda)
+    for bad in (dict(lse=torch.zeros((1, 16, 4), device=cuda)),
+                dict(lse=lse.double()),
+                dict(do=torch.zeros((1, 16, 4, 8), device=cuda)),
+                dict(do=q.bfloat16()),
+                dict(do=torch.zeros((1, 4, 16, 16), device=cuda).transpose(1, 2)),
+                dict(q=q.cpu())):
+        args = {**dict(q=q, k=k, v=k, o=q, lse=lse, do=q), **bad}
+        with pytest.raises(ValueError):
+            fab.flash_attention_bwd(**args, causal=True)
+
+
+@pytest.mark.requires_cuda
+def test_ssd_kernel_refuses_a_gradient(cuda):
+    """K3 has no backward: an input that requires grad raises under grad
+    mode and not under no_grad."""
+    B, S, H, P, N = 1, 16, 2, 16, 16
+    x = torch.randn(B, S, H, P, device=cuda, requires_grad=True)
+    dt = torch.rand(B, S, H, device=cuda)
+    A = -torch.rand(H, device=cuda)
+    Bm, Cm = torch.randn(B, S, N, device=cuda), torch.randn(B, S, N, device=cuda)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=16)
+    with torch.no_grad():
+        y, _ = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=16)
+    assert torch.isfinite(y).all()
+
+
+def _train_runs(device, steps, sync_check=False):
+    """Three reduced qwen2.5-3b fp32 train steps from the same CPU-drawn
+    weights and batches; returns the (loss, grad_norm) of each."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.training import OptimizerConfig, init_train_state, make_train_step
+
+    cfg = ARCHS["qwen2.5-3b"].reduced()
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=steps)
+    state = init_train_state(cfg, opt, torch.Generator().manual_seed(0), device)
+    data = TokenPipeline(DataConfig(cfg.vocab_size, 2, 16, seed=0))
+    step = make_train_step(cfg, opt)
+    out = []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch_at(i).items()}
+        if sync_check and i > 0:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, met = step(state, batch)
+        finally:
+            if sync_check:
+                torch.cuda.set_sync_debug_mode("default")
+        out.append((float(met["loss"]), float(met["grad_norm"])))
+    return out
+
+
+@pytest.mark.requires_cuda
+def test_train_steps_on_the_card_match_the_cpu(cuda):
+    """Three reduced fp32 steps through K1's forward and backward kernels
+    against the same steps on the CPU (plain versions): loss and grad norm
+    within 1e-4 relative."""
+    before = (fa.launches, fab.launches)
+    got = _train_runs(cuda, 3)
+    cfg_layers = 2
+    # forward + remat recompute per layer, one backward per layer
+    assert (fa.launches - before[0], fab.launches - before[1]) == (
+        3 * 2 * cfg_layers, 3 * cfg_layers)
+    want = _train_runs(torch.device("cpu"), 3)
+    np.testing.assert_allclose(np.array(got), np.array(want), rtol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_train_step_never_waits_for_the_card(cuda):
+    """Under ``set_sync_debug_mode("error")`` a train step only queues work:
+    the host waits for the card only where it reads the loss back (after
+    the step). The first step, which builds the kernels, runs before."""
+    losses = _train_runs(cuda, 3, sync_check=True)
+    assert all(np.isfinite(losses).ravel())

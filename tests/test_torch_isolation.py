@@ -30,7 +30,7 @@ def _imported_modules(path: Path):
 def test_sources_exist():
     assert (PORT / "core" / "runtime.py").exists()
     assert (ROOT / "chip_smoke.py").exists()
-    for name in ("flash_attention", "decode_attention", "ssd_scan"):
+    for name in ("flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan"):
         assert (PORT / "kernels" / "csrc" / f"{name}.cu").exists()
 
 
@@ -46,7 +46,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch.core, repro_torch.core.functions, "
             "repro_torch.kernels.ops, repro_torch.models.convert, "
             "repro_torch.models.mamba2, repro_torch.serving, repro_torch.api, "
-            "repro_torch.core.simulator, repro_torch.core.faults; "
+            "repro_torch.core.simulator, repro_torch.core.faults, "
+            "repro_torch.training, repro_torch.training.compression, "
+            "repro_torch.checkpoint, repro_torch.data.pipeline, repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
