@@ -15,7 +15,10 @@ Phases, one JSON line each:
                  PyTorch library call where one computes the same function
                  (the yardstick only) and its bound: flash attention (K1;
                  its backward kernel too, at the sweep in fp32 and bf16 and
-                 at the training shape, against the plain backward),
+                 at the training shape, against the plain backward, bf16
+                 also against the plain version of its own roundings and
+                 bit for bit against a second call, and at the training
+                 shape each of the bf16 route's three kernels timed alone),
                  decode attention (K2, with its number of splits and the
                  host's cost of one call), SSD scan (K3: bf16 initial-state
                  and strided-view cases too, and at full width each of the
@@ -134,7 +137,8 @@ from repro_torch.training.steps import _value_and_grad  # noqa: E402
 KERNELS = {fa.NAME: fa, fab.NAME: fab, dec.NAME: dec, ssd.NAME: ssd}
 # the CUDA functions of those kernels, as the profiler names them
 K1_FWD_NAMES = ("flash_fwd_kernel", "flash_fwd_bf16_kernel")
-K1_BWD_NAMES = ("flash_bwd_dot_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+K1_BWD_NAMES = ("flash_bwd_dot_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                *fab.PARTS)
 PORT_KERNEL_NAMES = (*K1_FWD_NAMES, *K1_BWD_NAMES, "decode_split_kernel",
                      "decode_combine_kernel", "ssd_kernel", *ssd.STAGES)
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound's rates
@@ -1144,6 +1148,12 @@ TRAIN_OPT = OptimizerConfig(lr=1e-3, warmup_steps=max(TRAIN_STEPS // 10, 1),
 GEMM_TAGS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")  # cuBLAS's kernel names
 
 
+# the bf16 kernels against ref.flash_attention_bwd_bf16 (the same roundings
+# of P and dS), per output: tests/test_torch_cuda.py's BF16_SAME_ROUNDING_TOL
+# * max|g|, one bf16 ulp of the largest gradient (2^-7) and the sums' order
+BF16_SAME_ROUNDING_TOL = 1e-2
+
+
 def grad_tol(dtype, want):
     """The gradient tolerance, per output: 1e-4 * max(1, max|g|) in fp32,
     2e-2 * max|g| in bf16 (bf16 rounds the inputs of every product)."""
@@ -1166,15 +1176,18 @@ def attention_bwd_inputs(shape, dtype, seed=0):
 def phase_kernels_bwd():
     """K1's backward kernel against the plain backward (the same q, k, v,
     output and dO; the plain log-sum-exp) at the sweep and the serving and
-    training shapes, fp32 and bf16; the forward kernel's log-sum-exp
-    against the plain one; then device time at the training shape."""
+    training shapes, fp32 and bf16; bf16 also against the plain version of
+    its own roundings and bit for bit against a second call; the forward
+    kernel's log-sum-exp against the plain one; then device time at the
+    training shape, the whole and each bf16 kernel alone."""
     results, worst, t0 = [], 0.0, time.monotonic()
     cases = [(s, d) for s in (*REF_SHAPES, REDUCED_SHAPE, TRAIN_SHAPE, *ZOO_SHAPES)
              for d in (torch.float32, torch.bfloat16)]
     for shape, dtype in cases:
         causal = shape[-1]
-        q, k, v, o, lse, do = attention_bwd_inputs(shape, dtype)
-        grads = fab.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        args = attention_bwd_inputs(shape, dtype)
+        q, k, v, o, lse, do = args
+        grads = fab.flash_attention_bwd(*args, causal=causal)
         torch.cuda.synchronize()
         plain_lse = ref.attention_lse(q, k, causal=causal)
         lse_err = (lse - plain_lse).abs().max().item()
@@ -1184,18 +1197,31 @@ def phase_kernels_bwd():
             err = (g.float() - w.float()).abs().max().item()
             errs.append(err)
             ok = ok and err <= grad_tol(dtype, w) and bool(torch.isfinite(g).all().item())
-        results.append({"shape": list(shape), "dtype": str(dtype).split(".")[1],
-                        "max_abs_err_dq_dk_dv": errs, "lse_max_abs_err": lse_err, "ok": ok})
-        check(ok, f"flash_attention_bwd disagrees at {shape} {dtype}: {errs}, lse {lse_err}")
+        case = {"shape": list(shape), "dtype": str(dtype).split(".")[1],
+                "max_abs_err_dq_dk_dv": errs, "lse_max_abs_err": lse_err}
+        if dtype == torch.bfloat16:
+            same = ref.flash_attention_bwd_bf16(*args, causal=causal)
+            rel = [(g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+                   for g, w in zip(grads, same)]
+            again = fab.flash_attention_bwd(*args, causal=causal)
+            bits = all(torch.equal(a, b) for a, b in zip(grads, again))
+            case.update(rel_err_vs_bf16_plain=rel, bit_equal_second_call=bits)
+            ok = ok and max(rel) <= BF16_SAME_ROUNDING_TOL and bits
+            del same, again
+        case["ok"] = ok
+        results.append(case)
+        check(ok, f"flash_attention_bwd disagrees at {shape} {dtype}: {case}")
         worst = max(worst, *errs)
-        del q, k, v, o, lse, do, grads, plains
+        del args, q, k, v, o, lse, do, grads, plains
     emit({"phase": "kernels", "kernel": fab.NAME, "cases": results,
-          "tol": "1e-4 * max(1, max|g|) fp32, 2e-2 * max|g| bf16, per output",
-          "seconds": time.monotonic() - t0})
+          "tol": "1e-4 * max(1, max|g|) fp32, 2e-2 * max|g| bf16, per output; bf16 "
+          f"against its own roundings {BF16_SAME_ROUNDING_TOL} * max|g|, and bit-equal "
+          "across two calls", "seconds": time.monotonic() - t0})
     t0 = time.monotonic()
 
     dtype = torch.bfloat16
-    q, k, v, o, lse, do = attention_bwd_inputs(TRAIN_SHAPE, dtype)
+    args = attention_bwd_inputs(TRAIN_SHAPE, dtype)
+    q, k, v, o, lse, do = args
     G = TRAIN_SHAPE[3] // TRAIN_SHAPE[4]
     # the yardstick: SDPA's forward+backward minus its forward, GQA expanded
     # outside the timed calls
@@ -1211,11 +1237,16 @@ def phase_kernels_bwd():
         with torch.no_grad():
             sdpa(qt, kt, vt, is_causal=True)
 
-    kern = lambda: fab.flash_attention_bwd(q, k, v, o, lse, do, causal=True)  # noqa: E731
-    plain = lambda: ref.flash_attention_bwd(q, k, v, o, lse, do, causal=True)  # noqa: E731
-    for fn in (kern, plain, lib_fwd_bwd, lib_fwd):  # first calls (SDPA's backward sets
-        fn()                                        # itself up) before time_ms sizes its sleep
-    torch.cuda.synchronize()
+    kern = lambda: fab.flash_attention_bwd(*args, causal=True)  # noqa: E731
+    plain = lambda: ref.flash_attention_bwd(*args, causal=True)  # noqa: E731
+    # each bf16 kernel alone, on one call's scratch and outputs (filled first)
+    bufs = (fab.new_scratch(q), torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    fab.launch_parts(sum(fab.PARTS.values()), *args, *bufs, causal=True)
+    parts = {name: functools.partial(fab.launch_parts, bit, *args, *bufs, causal=True)
+             for name, bit in fab.PARTS.items()}
+    for fn in (kern, plain, lib_fwd_bwd, lib_fwd, *parts.values()):  # first calls (SDPA's
+        fn()                                   # backward sets itself up) before time_ms
+    torch.cuda.synchronize()                   # sizes its sleep
     timing = {
         "plain_ms": time_ms(plain, reps=3, inner=3),
         "ms": time_ms(kern),
@@ -1224,6 +1255,7 @@ def phase_kernels_bwd():
     }
     timing["library_ms"] = timing["library_fwd_bwd_ms"] - timing["library_fwd_ms"]
     timing["ms_again"] = time_ms(kern)
+    timing["parts_ms"] = {name: time_ms(fn) for name, fn in parts.items()}
     _, _, fwd_flops, _ = attention_bound_ms(TRAIN_SHAPE, dtype)
     B, Sq, Sk, Hq, Hkv, Dh, _ = TRAIN_SHAPE
     flops = 2.5 * fwd_flops  # five (query, key) products against the forward's two
@@ -1233,11 +1265,11 @@ def phase_kernels_bwd():
     bound_ms, bound_by = bound(flops, nbytes, dtype)
     emit({"phase": "kernel_timing", "kernel": fab.NAME, "shape": list(TRAIN_SHAPE),
           "dtype": "bfloat16", **timing, "bound_ms": bound_ms, "bound_by": bound_by,
-          "flops": flops, "bytes": nbytes,
+          "flops": flops, "bytes": nbytes, "executed_flops": 3.5 * fwd_flops,
           "library": "scaled_dot_product_attention forward+backward minus its forward, "
           "GQA expanded outside the timed call", "tflops": flops / timing["ms"] / 1e9,
           "seconds": time.monotonic() - t0})
-    del q, k, v, o, lse, do, qt, kt, vt
+    del args, q, k, v, o, lse, do, qt, kt, vt, bufs, parts
     return {"max_abs_err": worst, **timing, "bound_ms": bound_ms, "bound_by": bound_by,
             "shape": list(TRAIN_SHAPE)}
 

@@ -1,5 +1,5 @@
-// PTX building blocks shared by the hand-written kernels: 16-byte cp.async
-// with a wait_group pipeline, ldmatrix (plain and transposed), the bf16
+// PTX building blocks shared by the hand-written kernels: 16- and 4-byte
+// cp.async with a wait_group pipeline, ldmatrix (plain and transposed), the bf16
 // m16n8k16 tensor-core mma with fp32 accumulation, and the XOR swizzle of
 // 16-byte chunks in shared memory. All of it is legal PTX on sm_90a.
 //
@@ -32,6 +32,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool pred) {
   const int n = pred ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+// 4 bytes global -> shared (cp.async.ca), zero-filled when pred is false.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool pred) {
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(n)
                : "memory");
 }

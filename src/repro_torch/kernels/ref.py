@@ -11,7 +11,9 @@
   order (per-split partials, then one merge); only the tests use it.
 * ``flash_attention_bwd`` is FlashAttention-2's backward from the
   forward's output and log-sum-exp (``attention_lse``), the plain version
-  of K1's backward kernel; only the tests and ``chip_smoke.py`` use it.
+  of K1's backward kernel; ``flash_attention_bwd_bf16`` is the same with
+  the bf16 kernels' roundings. Only the tests and ``chip_smoke.py`` use
+  them.
 * ``ssd_scan`` is ``repro.models.mamba2.ssd_chunked_ref`` (with
   ``_segsum``): Mamba2's chunked SSD scan with an optional initial state.
 
@@ -178,6 +180,31 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal, scale=None):
     dq = torch.einsum("bqhgk,bkhd->bqhgd", ds, k.float()) * scale
     dk = torch.einsum("bqhgk,bqhgd->bkhd", ds, qg) * scale
     return dq.reshape(B, Sq, Hq, Dh).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_bf16(q, k, v, o, lse, do, *, causal, scale=None):
+    """The bf16 backward kernels' arithmetic, step by step: bf16 operands
+    (q, k, v, o, do rounded to bf16), fp32 sums; D = rowsum(dO o O);
+    P = exp(S * scale - lse) in fp32, rounded to bf16 before dV = P^T dO;
+    dS = P o (dP - D) from the fp32 P, rounded to bf16 before dQ =
+    scale * dS K and dK = scale * dS^T Q; the gradients rounded to bf16.
+    Nothing on the card's path calls this."""
+    B, Sq, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    q, k, v, o, do = (t.to(torch.bfloat16).float() for t in (q, k, v, o, do))
+    s, qg = _scores(q, k, causal=causal, scale=scale)
+    rows = lse.float().permute(0, 2, 1).reshape(B, Sq, Hkv, G)
+    p = torch.exp(s - rows[..., None])  # exp(-inf) = 0 where masked
+    dog = do.reshape(B, Sq, Hkv, G, Dh)
+    dot = (dog * o.reshape(B, Sq, Hkv, G, Dh)).sum(-1)
+    dv = torch.einsum("bqhgk,bqhgd->bkhd", p.to(torch.bfloat16).float(), dog)
+    dp = torch.einsum("bqhgd,bkhd->bqhgk", dog, v)
+    ds = (p * (dp - dot[..., None])).to(torch.bfloat16).float()
+    dq = torch.einsum("bqhgk,bkhd->bqhgd", ds, k) * scale
+    dk = torch.einsum("bqhgk,bqhgd->bkhd", ds, qg) * scale
+    return tuple(t.to(torch.bfloat16) for t in (dq.reshape(B, Sq, Hq, Dh), dk, dv))
 
 
 def decode_attention(

@@ -567,6 +567,102 @@ def test_flash_backward_kernel_matches_plain(cuda, dtype, B, Sq, Sk, Hq, Hkv, Dh
         assert w.float().abs().max().item() > 0
 
 
+def _bwd_inputs(device, dtype, B, Sq, Sk, Hq, Hkv, Dh, causal, seed=0):
+    """q, k, v, dO from a seed; the forward kernel's output and lse."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(device, dtype)
+                   for s in ((B, Sq, Hq, Dh), (B, Sk, Hkv, Dh), (B, Sk, Hkv, Dh),
+                             (B, Sq, Hq, Dh)))
+    o, lse = fa._forward(q, k, v, causal, 1.0 / Dh ** 0.5, with_lse=True)
+    return q, k, v, o, lse, do
+
+
+#: the bf16 kernels against ref.flash_attention_bwd_bf16 (the same
+#: roundings), per output: BF16_SAME_ROUNDING_TOL * max|g|
+BF16_SAME_ROUNDING_TOL = 1e-2
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,Dh,causal", SHAPES)
+def test_flash_backward_bf16_kernel_matches_its_roundings(cuda, B, Sq, Sk, Hq, Hkv, Dh, causal):
+    """The bf16 route against ``ref.flash_attention_bwd_bf16`` on the same
+    q, k, v, output, lse and dO: the same roundings of P and dS, so a
+    tighter bound than the 2e-2 against the fp32 backward."""
+    args = _bwd_inputs(cuda, torch.bfloat16, B, Sq, Sk, Hq, Hkv, Dh, causal)
+    grads = fab.flash_attention_bwd(*args, causal=causal)
+    want = ref.flash_attention_bwd_bf16(*args, causal=causal)
+    for name, g, w in zip("qkv", grads, want):
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= BF16_SAME_ROUNDING_TOL * w.float().abs().max().item(), f"d{name}: {err}"
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,Dh,causal", SHAPES)
+def test_flash_backward_bf16_is_deterministic_and_its_parts_compose(
+        cuda, B, Sq, Sk, Hq, Hkv, Dh, causal):
+    """Two bf16 backward calls give the same bits (no atomics), and the D,
+    dK/dV and dQ kernels launched one by one give those bits too."""
+    args = _bwd_inputs(cuda, torch.bfloat16, B, Sq, Sk, Hq, Hkv, Dh, causal)
+    first = fab.flash_attention_bwd(*args, causal=causal)
+    second = fab.flash_attention_bwd(*args, causal=causal)
+    scratch = fab.new_scratch(args[0])
+    parts = tuple(torch.empty_like(t) for t in first)
+    before = fab.launches
+    for bit in fab.PARTS.values():
+        fab.launch_parts(bit, *args, scratch, *parts, causal=causal)
+    torch.cuda.synchronize()
+    assert fab.launches == before
+    for name, a, b, c in zip("qkv", first, second, parts):
+        assert torch.equal(a, b), f"d{name} differs between two calls"
+        assert torch.equal(a, c), f"d{name} differs when the kernels run one by one"
+
+
+# the edges of what the backward takes: G = 64 and 32, causal with Sq != Sk
+# (top-left: keys past Sq see no row; rows past Sk see every key), one
+# query, two keys (one key would make dq and dk zero but for rounding)
+EDGE_SHAPES = [
+    (1, 3, 70, 64, 1, 16, True),
+    (1, 70, 3, 64, 1, 128, True),
+    (2, 65, 130, 32, 1, 64, True),
+    (1, 130, 65, 8, 1, 128, True),
+    (2, 1, 2, 4, 2, 32, False),
+    (1, 1, 77, 64, 1, 64, False),
+    (3, 97, 2, 2, 1, 16, True),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,Dh,causal", EDGE_SHAPES)
+def test_flash_backward_kernel_at_the_edges_of_what_it_takes(
+        cuda, dtype, B, Sq, Sk, Hq, Hkv, Dh, causal):
+    """Both routes against ``ref.flash_attention_bwd`` (the plain
+    log-sum-exp) at the edge shapes, bf16 also against its own roundings."""
+    dt = getattr(torch, dtype)
+    args = _bwd_inputs(cuda, dt, B, Sq, Sk, Hq, Hkv, Dh, causal)
+    q, k, v, o, _, do = args
+    grads = fab.flash_attention_bwd(*args, causal=causal)
+    lse = ref.attention_lse(q, k, causal=causal)
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    for name, g, w in zip("qkv", grads, want):
+        assert bool(torch.isfinite(g).all()), f"d{name} not finite"
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= _grad_tol(dt, w), f"d{name}: {err}"
+    if dt == torch.bfloat16:
+        for name, g, w in zip("qkv", grads, ref.flash_attention_bwd_bf16(*args, causal=causal)):
+            err = (g.float() - w.float()).abs().max().item()
+            assert err <= BF16_SAME_ROUNDING_TOL * w.float().abs().max().item(), f"d{name}"
+
+
+@pytest.mark.requires_cuda
+def test_flash_backward_parts_take_only_bf16(cuda):
+    q = torch.zeros((1, 16, 4, 16), device=cuda)
+    k = torch.zeros((1, 16, 2, 16), device=cuda)
+    lse = torch.zeros((1, 4, 16), device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        fab.launch_parts(2, q, k, k, q, lse, q, fab.new_scratch(q), q, k, k, causal=True)
+
+
 @pytest.mark.requires_cuda
 def test_flash_backward_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros((1, 16, 4, 16), device=cuda)

@@ -402,6 +402,43 @@ def test_plain_attention_backward_matches_autograd_and_jax(B, Sq, Sk, Hq, Hkv, D
         assert float(np.abs(a.numpy() - w).max()) <= bound, f"autograd d{name} vs jax"
 
 
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,Dh,causal", [
+    (2, 20, 20, 2, 2, 16, True),     # G 1, ragged causal
+    (1, 33, 33, 4, 2, 128, True),    # G 2, Dh 128, ragged causal
+    (1, 20, 20, 8, 2, 16, True),     # G 4
+    (1, 33, 33, 16, 1, 16, True),    # G 16, ragged causal
+    (2, 12, 30, 4, 1, 128, False),   # G 4, Sq < Sk
+    (1, 33, 17, 2, 2, 16, False),    # G 1, Sq > Sk
+    (1, 20, 40, 16, 1, 128, False),  # G 16, Dh 128, Sq < Sk
+])
+def test_bf16_attention_backward_meets_the_bf16_bound(B, Sq, Sk, Hq, Hkv, Dh, causal):
+    """ref.flash_attention_bwd_bf16 (the bf16 kernels' roundings: bf16
+    operands, P and dS rounded to bf16 before their products, bf16
+    gradients) on bf16-valued inputs, within 2e-2 * max|g| per output of
+    jax.vjp of flash_attention_ref on the same values in fp32 and of
+    ref.flash_attention_bwd in fp32."""
+    rng = np.random.default_rng(7 * Sq + Sk + Dh)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .bfloat16().float().numpy()
+                   for s in ((B, Sq, Hq, Dh), (B, Sk, Hkv, Dh), (B, Sk, Hkv, Dh),
+                             (B, Sq, Hq, Dh)))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out = ref.flash_attention(tq, tk, tv, causal=causal, block_q=8, block_k=8)
+    lse = ref.attention_lse(tq, tk, causal=causal)
+    got = ref.flash_attention_bwd_bf16(tq.bfloat16(), tk.bfloat16(), tv.bfloat16(),
+                                       out.bfloat16(), lse, tdo.bfloat16(), causal=causal)
+    plain = ref.flash_attention_bwd(tq, tk, tv, out, lse, tdo, causal=causal)
+    attn = lambda a, b, c: jax_attention(a, b, c, causal=causal, block_q=8, block_k=8)  # noqa: E731
+    want = jax.jit(lambda a, b, c, g: jax.vjp(attn, a, b, c)[1](g))(q, k, v, do)
+    for name, g, p, w in zip("qkv", got, plain, want):
+        w = np.asarray(w)
+        assert g.dtype == torch.bfloat16 and tuple(g.shape) == w.shape
+        bound = 2e-2 * float(np.abs(w).max())
+        g = g.float().numpy()
+        assert float(np.abs(g - w).max()) <= bound, f"d{name} vs jax"
+        assert float(np.abs(g - p.numpy()).max()) <= bound, f"d{name} vs the fp32 backward"
+
+
 def test_backward_kernel_wrapper_refuses_cpu_tensors():
     """The backward kernel's wrapper raises on CPU tensors, before it builds
     anything: it never falls back to the plain version."""
@@ -413,3 +450,17 @@ def test_backward_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fab.flash_attention_bwd(q, k, k, q, torch.zeros(1, 4, 8), q, causal=True)
     assert fab.launches == before
+
+
+def test_backward_kernel_parts_refuse_cpu_tensors():
+    """Launching the bf16 kernels one by one raises on CPU tensors too,
+    before it builds anything."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    q = torch.zeros(1, 8, 4, 16, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 4, 8)
+    assert tuple(fab.new_scratch(q).shape) == (2, 1, 4, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        fab.launch_parts(sum(fab.PARTS.values()), q, k, k, q, lse, q, fab.new_scratch(q),
+                         q, k, k, causal=True)
