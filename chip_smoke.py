@@ -22,7 +22,12 @@ Phases, one JSON line each:
                  decode attention (K2, with its number of splits and the
                  host's cost of one call), SSD scan (K3: bf16 initial-state
                  and strided-view cases too, and at full width each of the
-                 bf16 route's four kernels timed alone beside the whole);
+                 bf16 route's four kernels timed alone beside the whole) and
+                 K3's backward (the SSD sweep, the edges and the reduced
+                 shape in fp32 and bf16, with and without an initial state
+                 and a final state's gradient, strided views, bit for bit
+                 against a second call; timed at mamba2-780m's training
+                 shape with each of its five launches alone);
 4. reduced       SageRuntime serves the reduced qwen2.5-3b cold -> warm -> warm;
 5. full          SageRuntime serves the full-width qwen2.5-3b (36 layers,
                  d_model 2048, bf16, random weights from a seed), batch
@@ -73,9 +78,17 @@ Phases, one JSON line each:
                  against use_kernel=False at depth 2 (fp32 and bf16), the
                  reduced train_loop with a checkpoint every 3 steps, a
                  failure at step 4 and a resume (against the uninterrupted
-                 run and the CPU's), and the compressed DP step on a
-                 one-rank NCCL group;
-14. the {"kernels": [...]} line, then the contract's last line.
+                 run and the CPU's), the compressed DP step on a
+                 one-rank NCCL group, and the reduced jamba (K1 and K3,
+                 forward and backward, and MoE) through train_loop against
+                 the CPU's losses;
+14. train_mamba  mamba2-780m trained at full width (48 layers, d_model
+                 1536, SSD heads 48 x 64, state 128, chunk 128), the setup
+                 of 13: K3 forward 96 (48 + 48 recomputed) and backward 48
+                 launches a step, K1 none; then every leaf's gradient with
+                 the K3 route against use_kernel=False at depth 2 (fp32
+                 and bf16);
+15. the {"kernels": [...]} line, then the contract's last line.
 
 Each served path sets every kernel's launch count to 0 just before it runs
 and reads the counts just after. Any failed check exits non-zero before the
@@ -125,6 +138,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.kernels import ssd_scan_bwd as ssdb  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models import decode_step, forward, init_cache, init_params, prefill  # noqa: E402
 from repro_torch.serving import greedy_sample, make_decode_step, make_prefill_step  # noqa: E402
@@ -134,13 +148,17 @@ from repro_torch.training import (  # noqa: E402
 from repro_torch.training.optimizer import adamw_update  # noqa: E402
 from repro_torch.training.steps import _value_and_grad  # noqa: E402
 
-KERNELS = {fa.NAME: fa, fab.NAME: fab, dec.NAME: dec, ssd.NAME: ssd}
+KERNELS = {fa.NAME: fa, fab.NAME: fab, dec.NAME: dec, ssd.NAME: ssd, ssdb.NAME: ssdb}
 # the CUDA functions of those kernels, as the profiler names them
 K1_FWD_NAMES = ("flash_fwd_kernel", "flash_fwd_bf16_kernel")
 K1_BWD_NAMES = ("flash_bwd_dot_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
                 *fab.PARTS)
+K3_FWD_NAMES = ("ssd_kernel", "ssd_chunk_cb_kernel", "ssd_chunk_state_kernel",
+                "ssd_chunk_scan_kernel")
+K3_BWD_NAMES = tuple(ssdb.PARTS)
+K3_PASS_NAME = "ssd_state_pass_kernel"  # launched by K3's forward and its backward
 PORT_KERNEL_NAMES = (*K1_FWD_NAMES, *K1_BWD_NAMES, "decode_split_kernel",
-                     "decode_combine_kernel", "ssd_kernel", *ssd.STAGES)
+                     "decode_combine_kernel", *K3_FWD_NAMES, K3_PASS_NAME, *K3_BWD_NAMES)
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound's rates
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
@@ -357,16 +375,47 @@ def decode_bound_ms(shape, lengths, dtype):
     return (*bound(flops, nbytes, dtype), flops, nbytes)
 
 
+def ssd_chunk_lengths(S, T):
+    """The chunks' lengths: T each, the last one ragged."""
+    return [min(T, S - c) for c in range(0, S, T)]
+
+
 def ssd_bound_ms(shape, dtype):
-    """Operations as the TPU kernel does them, per (sequence, head, chunk):
-    C B^T (2 T T N), the masked product with x*dt (2 T T P), C times the
-    state (2 T N P) and the state update (2 T P N). Bytes: x, dt, B, C read
-    once, y and the fp32 final state written once."""
+    """Operations the function needs, with the causal mask's pairs s <= l
+    of each chunk of length t (t (t + 1) / 2 of them): C B^T once per
+    (sequence, chunk), since it does not depend on the head (2 pairs N);
+    per (sequence, chunk, head) the masked product with x*dt (2 pairs P),
+    C times the entering state (2 t N P) and the state update (2 t P N).
+    Bytes: x, dt, B, C read once, y and the fp32 final state written once."""
     B, S, H, P, N, T = shape
-    chunks = -(-S // T)
-    flops = 2.0 * T * (T * N + T * P + 2 * N * P) * B * H * chunks
+    flops = 0.0
+    for t in ssd_chunk_lengths(S, T):
+        pairs = t * (t + 1) / 2
+        flops += 2.0 * B * (pairs * N + H * (pairs * P + 2 * t * N * P))
     elt = torch.finfo(dtype).bits / 8
     nbytes = elt * (2 * B * S * H * P + 2 * B * S * N) + 4 * (B * S * H + H + B * H * P * N)
+    return (*bound(flops, nbytes, dtype), flops, nbytes)
+
+
+def ssd_bwd_bound_ms(shape, dtype):
+    """Operations the backward needs, counted as ``ssd_bound_ms`` counts the
+    forward's: C B^T once per (sequence, chunk) (2 pairs N); per (sequence,
+    chunk, head) the causal products dy u^T and du's sum over l >= s (each
+    2 pairs P), dC's sum over s <= l and dB's over l >= s (each 2 pairs N),
+    and five (P, N) state products of 2 t P N each: the chunk's local
+    state, its adjoint, S-hat B (for du and the decay's gradient), S_in^T
+    dy (for dC and the decay's gradient) and S-hat^T u (for dB). Bytes, for
+    a call without an initial state or a final state's gradient (the train
+    step's): x, dt, A, B, C, dy read once; dx, ddt, dA, dB, dC and the
+    initial state's gradient written once."""
+    B, S, H, P, N, T = shape
+    flops = 0.0
+    for t in ssd_chunk_lengths(S, T):
+        pairs = t * (t + 1) / 2
+        flops += 2.0 * B * (pairs * N + H * (2 * pairs * (P + N) + 5 * t * P * N))
+    elt = torch.finfo(dtype).bits / 8
+    nbytes = (elt * (3 * B * S * H * P + 4 * B * S * N) + 4 * 2 * (B * S * H + H)
+              + 4 * B * H * P * N)
     return (*bound(flops, nbytes, dtype), flops, nbytes)
 
 
@@ -579,6 +628,121 @@ def ssd_part_times(args, chunk):
     return parts, sum(t.numel() * t.element_size() for t in (cb, states, decay))
 
 
+def ssd_bwd_args(shape, dtype, with_init, with_dfinal, seed=0):
+    """The forward's inputs (``ssd_inputs``), an initial state or None, dy
+    in x's dtype and a nonzero final state's gradient or None."""
+    B, S, H, P, N, _ = shape
+    x, dt, A, Bm, Cm = ssd_inputs(shape, dtype, seed)
+    rng = np.random.default_rng(seed + 1)
+
+    def f32(*s):
+        return torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).cuda()
+
+    s0 = f32(B, H, P, N) if with_init else None
+    dy = f32(B, S, H, P).to(dtype)
+    return x, dt, A, Bm, Cm, s0, dy, f32(B, H, P, N) if with_dfinal else None
+
+
+def ssd_bwd_case(args, chunk, dtype, **tags):
+    """K3's backward kernel against ref.ssd_scan_bwd on ``args`` and against
+    a second call, bit for bit; returns (the case's record, its worst
+    |err|)."""
+    got = ssdb.ssd_scan_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    want = ref.ssd_scan_bwd(*args, chunk=chunk)
+    again = ssdb.ssd_scan_bwd(*args, chunk=chunk)
+    errs, rels, ok = [], [], True
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        m = w.float().abs().max().item()
+        errs.append(err)
+        rels.append(err / max(m, 1e-30))
+        ok = ok and err <= SSD_TOL[dtype] * m and bool(torch.isfinite(g.float()).all().item())
+    bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    case = {**tags, "dtype": str(dtype).split(".")[1], "max_abs_err": errs,
+            "rel_err": rels, "bit_equal_second_call": bits, "ok": ok and bits}
+    check(case["ok"], f"ssd_scan_bwd disagrees: {case}")
+    return case, max(errs)
+
+
+def phase_kernels_ssd_bwd():
+    """K3's backward kernel against the plain backward (ref.ssd_scan_bwd) at
+    the SSD sweep, the edges and the reduced shape, fp32 and bf16, with and
+    without an initial state and a final state's gradient; strided views of
+    one fused tensor; the training shape (bf16); each bit for bit against
+    a second call. Then device time at the training shape (no initial
+    state, no final state's gradient: the train step's case), the whole
+    and each of its five launches alone."""
+    results, worst, t0 = [], 0.0, time.monotonic()
+    for shape in (*SSD_REF_SHAPES, *SSD_EDGE_SHAPES, SSD_REDUCED_SHAPE):
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_init in (False, True):
+                for with_dfinal in (False, True):
+                    case, err = ssd_bwd_case(
+                        ssd_bwd_args(shape, dtype, with_init, with_dfinal), shape[-1], dtype,
+                        shape=list(shape), initial_state=with_init, dfinal_state=with_dfinal)
+                    results.append(case)
+                    worst = max(worst, err)
+    B, S, H, P, N, chunk = SSD_REF_SHAPES[2]
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dt, A, Bm, Cm, s0, dy, dfs = ssd_bwd_args(SSD_REF_SHAPES[2], dtype, True, True)
+        fused = torch.cat([x.reshape(B, S, H * P), Bm, Cm], dim=-1)
+        xv, Bv, Cv = torch.split(fused, [H * P, N, N], dim=-1)
+        case, err = ssd_bwd_case((xv.reshape(B, S, H, P), dt, A, Bv, Cv, s0, dy, dfs), chunk,
+                                 dtype, shape=list(SSD_REF_SHAPES[2]), initial_state=True,
+                                 dfinal_state=True, strided_views=True)
+        results.append(case)
+        worst = max(worst, err)
+    dtype = torch.bfloat16
+    args = ssd_bwd_args(SSD_FULL_SHAPE, dtype, False, False)
+    case, err = ssd_bwd_case(args, SSD_FULL_SHAPE[-1], dtype, shape=list(SSD_FULL_SHAPE),
+                             initial_state=False, dfinal_state=False)
+    results.append(case)
+    worst = max(worst, err)
+    emit({"phase": "kernels", "kernel": ssdb.NAME, "cases": results,
+          "tol": "1e-3 * max|g| fp32, 3e-2 * max|g| bf16, per gradient (the SSD tolerances "
+          "of tests/test_kernels.py), and bit-equal across two calls",
+          "seconds": time.monotonic() - t0})
+    t0 = time.monotonic()
+
+    x, dt, A, Bm, Cm, _, dy, _ = args
+    chunk = SSD_FULL_SHAPE[-1]
+    kern = lambda: ssdb.ssd_scan_bwd(*args, chunk=chunk)  # noqa: E731
+    plain = lambda: ref.ssd_scan_bwd(*args, chunk=chunk)  # noqa: E731
+    # each launch alone, on one call's buffers (the first calls below run
+    # the five in order, so each reads what the ones before it wrote)
+    bufs = ssdb.new_buffers(x, Bm, chunk)
+
+    def launch(bit):
+        return lambda: ssdb.launch_parts(bit, x, dt, A, Bm, Cm, dy, bufs, chunk=chunk)
+
+    parts = {"ssd_bwd_chunk_kernel": launch(1),
+             "ssd_state_pass_kernel (states)": lambda: ssd.pass_states(
+                 bufs["states"], bufs["decay"], None, bufs["fs"]),
+             "ssd_state_pass_kernel (gradients, reversed)": lambda: ssd.pass_states(
+                 bufs["adj"], bufs["decay_rev"], None, bufs["dinit"]),
+             "ssd_bwd_grad_kernel": launch(2), "ssd_bwd_reduce_kernel": launch(4)}
+    for fn in (kern, plain, *parts.values()):
+        fn()
+    torch.cuda.synchronize()
+    timing = {"plain_ms": time_ms(plain, reps=3, inner=3), "ms": time_ms(kern, inner=5),
+              "library_ms": None}
+    timing["ms_again"] = time_ms(kern, inner=5)
+    timing["parts_ms"] = {name: time_ms(fn, inner=5) for name, fn in parts.items()}
+    bound_ms, bound_by, flops, nbytes = ssd_bwd_bound_ms(SSD_FULL_SHAPE, dtype)
+    emit({"phase": "kernel_timing", "kernel": ssdb.NAME, "shape": list(SSD_FULL_SHAPE),
+          "dtype": "bfloat16", **timing, "bound_ms": bound_ms, "bound_by": bound_by,
+          "flops": flops, "bytes": nbytes, "scratch_bytes": sum(
+              t.numel() * t.element_size() for k, t in bufs.items()
+              if k in ("states", "adj", "decay", "decay_rev", "dBp", "dCp", "dAp", "fs")),
+          "library": "none: no single PyTorch call computes the SSD scan's backward, and "
+          "autograd of the plain version is that version again",
+          "tflops": flops / timing["ms"] / 1e9, "seconds": time.monotonic() - t0})
+    del args, x, dt, A, Bm, Cm, dy, bufs, parts
+    return {"max_abs_err": worst, **timing, "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": list(SSD_FULL_SHAPE)}
+
+
 def drain(rt) -> dict:
     deadline = time.monotonic() + 60
     while not rt.is_idle() and time.monotonic() < deadline:
@@ -599,7 +763,7 @@ def forward_launches(cfg) -> dict:
     layer (and per encoder layer and cross attention), K3 once per Mamba2
     layer."""
     enc = cfg.encoder_layers + cfg.num_layers if cfg.is_encoder_decoder else 0
-    return {fa.NAME: cfg.num_attn_layers + enc, fab.NAME: 0, dec.NAME: 0,
+    return {**dict.fromkeys(KERNELS, 0), fa.NAME: cfg.num_attn_layers + enc,
             ssd.NAME: cfg.num_mamba_layers}
 
 
@@ -1022,8 +1186,8 @@ def phase_decode(arch, kernel_paths, phase="decode", path="", prompt_len=FULL_SE
     rel = [e / s for e, s in zip(errs, scale)]
     want_pre = forward_launches(cfg)
     cross = cfg.num_layers if cfg.is_encoder_decoder else 0
-    want_dec = {fa.NAME: 0, fab.NAME: 0,
-                dec.NAME: DECODE_STEPS * (cfg.num_attn_layers + cross), ssd.NAME: 0}
+    want_dec = {**dict.fromkeys(KERNELS, 0),
+                dec.NAME: DECODE_STEPS * (cfg.num_attn_layers + cross)}
     emit({"phase": phase, "arch": cfg.name, "batch": FULL_BATCH, "prompt": prompt_len,
           "encoder_frames": enc_len, "moe_capacity_factor": cfg.moe_capacity_factor,
           "steps": DECODE_STEPS, "prefill_ms": prefill_ms, "step_ms": step_ms,
@@ -1140,6 +1304,8 @@ def decode_past_cache():
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "qwen2.5-3b"
+MAMBA_TRAIN_ARCH = "mamba2-780m"
+JAMBA_ARCH = "jamba-1.5-large-398b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 10
 TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 2, 128, True)  # K1 at the train step
 # the JAX train_loop's schedule for 10 steps: warm-up max(steps // 10, 1)
@@ -1275,33 +1441,42 @@ def phase_kernels_bwd():
 
 
 def model_flops(cfg, batch, seq):
-    """(dense, attention) FLOPs of one train step's useful work: 6 per
-    parameter per token, and 3 x the causal attention forward's products
-    per attention layer (no recompute counted)."""
+    """(dense, attention, SSD) FLOPs of one train step's useful work: 6 per
+    parameter per token; 3 x the causal attention forward's products per
+    attention layer; the SSD scan's forward and backward products as
+    ``ssd_bound_ms`` and ``ssd_bwd_bound_ms`` count them (causal pairs only)
+    per Mamba2 layer (no recompute counted)."""
     dense = 6.0 * cfg.param_count() * batch * seq
     shape = (batch, seq, seq, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, True)
     attn = 3.0 * attention_bound_ms(shape, torch.bfloat16)[2] * cfg.num_attn_layers
-    return dense, attn
+    ssd_shape = (batch, seq, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)
+    ssm = ((ssd_bound_ms(ssd_shape, torch.bfloat16)[2]
+            + ssd_bwd_bound_ms(ssd_shape, torch.bfloat16)[2]) * cfg.num_mamba_layers
+           if cfg.num_mamba_layers else 0.0)
+    return dense, attn, ssm
 
 
 def step_breakdown(cfg, state, batch):
     """One step's device time by part: the forward and backward
     (``_value_and_grad``) profiled, split by kernel name into K1 forward,
-    K1 backward, GEMMs and the rest (elementwise, reductions, copies), then
-    the AdamW update profiled alone."""
+    K1 backward, K3 forward, K3 backward, K3's state pass (which both
+    launch), GEMMs and the rest (elementwise, reductions, copies), then the
+    AdamW update profiled alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    parts = dict.fromkeys(("k1_forward", "k1_backward", "gemm", "elementwise_other",
-                           "optimizer"), 0.0)
+    parts = dict.fromkeys(("k1_forward", "k1_backward", "k3_forward", "k3_backward",
+                           "k3_state_pass", "gemm", "elementwise_other", "optimizer"), 0.0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         metrics, grads = _value_and_grad(cfg, state["params"], batch)
         torch.cuda.synchronize()
         fb_wall = time.monotonic() - t0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+    events = [e for e in prof.key_averages()  # one pass over the trace: it is long
+              if e.device_type == DeviceType.CUDA]
+    for e in events:
+        if e.self_device_time_total <= 0:
             continue
         t = e.self_device_time_total / 1e3
         name = e.key.lower()
@@ -1309,12 +1484,17 @@ def step_breakdown(cfg, state, batch):
             parts["k1_forward"] += t
         elif any(tag in e.key for tag in K1_BWD_NAMES):
             parts["k1_backward"] += t
+        elif any(tag in e.key for tag in K3_BWD_NAMES):
+            parts["k3_backward"] += t
+        elif K3_PASS_NAME in e.key:
+            parts["k3_state_pass"] += t
+        elif any(tag in e.key for tag in K3_FWD_NAMES):
+            parts["k3_forward"] += t
         elif any(tag in name for tag in GEMM_TAGS):
             parts["gemm"] += t
         else:
             parts["elementwise_other"] += t
-    top = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                 key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     grads = T.unflatten(state["params"], grads)
     _, opt_prof = profiled(lambda: adamw_update(TRAIN_OPT, grads, state["opt"], state["params"]))
     parts["optimizer"] = opt_prof["device_busy_ms"]
@@ -1326,12 +1506,12 @@ def step_breakdown(cfg, state, batch):
             "loss": float(metrics["loss"])}
 
 
-def phase_train():
-    """qwen2.5-3b trained at full width: 10 steps of ``make_train_step`` on
+def phase_train(arch, phase):
+    """``arch`` trained at full width: 10 steps of ``make_train_step`` on
     the pipeline's 4 x 1024 batches (the main path: counts reset just
     before, read just after), then one more step profiled by part.
     Returns the launches by kernel."""
-    cfg = ARCHS[TRAIN_ARCH]
+    cfg = ARCHS[arch]
     check(cfg.param_dtype == cfg.compute_dtype == "bfloat16", "full width is bf16")
     check(cfg.remat_policy == "nothing_saveable", f"remat {cfg.remat_policy}")
     gc.collect()
@@ -1364,50 +1544,59 @@ def phase_train():
     breakdown = step_breakdown(cfg, state, batches[TRAIN_STEPS])
     step_med = statistics.median(step_s[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    dense, attn = model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    dense, attn, ssm = model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     del state, batches, met
     gc.collect()
     torch.cuda.empty_cache()
-    want = {fa.NAME: 2 * cfg.num_attn_layers, fab.NAME: cfg.num_attn_layers,
-            dec.NAME: 0, ssd.NAME: 0}
-    emit({"phase": "train", "arch": cfg.name, "params": cfg.param_count(),
+    # forward and remat recompute, then one backward, per layer
+    want = {**dict.fromkeys(KERNELS, 0), fa.NAME: 2 * cfg.num_attn_layers,
+            fab.NAME: cfg.num_attn_layers, ssd.NAME: 2 * cfg.num_mamba_layers,
+            ssdb.NAME: cfg.num_mamba_layers}
+    emit({"phase": phase, "arch": cfg.name, "params": cfg.param_count(),
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
           "optimizer": dataclasses.asdict(TRAIN_OPT), "remat": cfg.remat_policy,
           "init_s": init_s, "state_bytes": state_bytes, "losses": losses,
           "grad_norms": gnorms, "step_s": step_s, "step_s_median_2_10": step_med,
           "tokens_per_s": tokens / step_med, "model_flops_dense": dense,
-          "model_flops_attention": attn, "mfu_vs_989_tflops": (dense + attn) / step_med / 989e12,
+          "model_flops_attention": attn, "model_flops_ssd": ssm,
+          "mfu_vs_989_tflops": (dense + attn + ssm) / step_med / 989e12,
           "max_memory_allocated": peak, "memory_allocated_before": base_alloc,
           "launches": launches, "launches_per_step": per_step, "profiled_step": breakdown})
-    check(all(np.isfinite(x) for x in losses + gnorms), f"train: not finite {losses} {gnorms}")
-    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
-    check(per_step == [want] * TRAIN_STEPS, f"train: launches per step {per_step} != {want}")
-    check(peak < 80e9, f"train: peak memory {peak}")
+    check(all(np.isfinite(x) for x in losses + gnorms), f"{phase}: not finite {losses} {gnorms}")
+    check(losses[-1] < losses[0], f"{phase}: the loss did not fall: {losses}")
+    check(per_step == [want] * TRAIN_STEPS, f"{phase}: launches per step {per_step} != {want}")
+    check(peak < 80e9, f"{phase}: peak memory {peak}")
     return launches
 
 
-def train_grad_check():
-    """Every leaf's gradient of lm_loss with the K1 route against the same
-    with use_kernel=False, qwen2.5-3b's widths at depth 2, fp32 (TF32 off)
-    and bf16, on one pipeline batch; the attention projections' gradients
-    are not zero (K1's output carries a gradient). A comparison: its
-    launches are not a path."""
+def train_grad_check(arch):
+    """Every leaf's gradient of lm_loss with the kernels' route (K1 and K3,
+    forward and backward) against the same with use_kernel=False,
+    ``arch``'s widths at depth 2, fp32 (TF32 off) and bf16, on one pipeline
+    batch; the projections that feed a kernel (attention's wq, wk, wv,
+    Mamba2's fused in_proj, whose split gives the scan's strided x, B and
+    C) have gradients that are not zero. A comparison: its launches are
+    not a path."""
     out = {}
     for dtype in ("float32", "bfloat16"):
-        cfg = dataclasses.replace(ARCHS[TRAIN_ARCH], num_layers=2, param_dtype=dtype,
+        cfg = dataclasses.replace(ARCHS[arch], num_layers=2, param_dtype=dtype,
                                   compute_dtype=dtype)
         params = init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
         data = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0))
         batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(0).items()}
-        before = fab.launches
+        before = (fab.launches, ssdb.launches)
         met, got = _value_and_grad(cfg, params, batch)
-        check(fab.launches == before + cfg.num_layers, "the K1 route ran no backward kernel")
-        kernel_route = ops.flash_attention
-        ops.flash_attention = functools.partial(kernel_route, use_kernel=False)
+        check((fab.launches - before[0], ssdb.launches - before[1])
+              == (cfg.num_attn_layers, cfg.num_mamba_layers),
+              f"{arch}: the kernel route ran {fab.launches - before[0]} K1 and "
+              f"{ssdb.launches - before[1]} K3 backward kernels")
+        routes = (ops.flash_attention, ops.ssd_scan)
+        ops.flash_attention = functools.partial(routes[0], use_kernel=False)
+        ops.ssd_scan = functools.partial(routes[1], use_kernel=False)
         try:
             pmet, want = _value_and_grad(cfg, params, batch)
         finally:
-            ops.flash_attention = kernel_route
+            ops.flash_attention, ops.ssd_scan = routes
         worst, per_leaf, ok = 0.0, {}, True
         for (key, _), g, w in zip(T.items(params), got, want):
             err = (g.float() - w.float()).abs().max().item()
@@ -1416,16 +1605,16 @@ def train_grad_check():
             ok = ok and err <= grad_tol(getattr(torch, dtype), w)
             worst = max(worst, rel)
         proj = {key: g.float().abs().max().item() for (key, _), g in zip(T.items(params), got)
-                if key.split("/")[-1] in ("wq", "wk", "wv")}
+                if key.split("/")[-1] in ("wq", "wk", "wv", "in_proj")}
         out[dtype] = {"loss": float(met["loss"]), "plain_loss": float(pmet["loss"]),
                       "worst_rel_err": worst, "per_leaf": per_leaf,
-                      "attention_projection_max_abs_grad": proj}
-        check(ok, f"train grads ({dtype}) differ from use_kernel=False: {per_leaf}")
-        check(all(v > 0 for v in proj.values()), f"zero attention gradients: {proj}")
+                      "projection_max_abs_grad": proj}
+        check(ok, f"{arch} train grads ({dtype}) differ from use_kernel=False: {per_leaf}")
+        check(proj and all(v > 0 for v in proj.values()), f"{arch} zero projection grads: {proj}")
         del params, got, want, batch
         gc.collect()
         torch.cuda.empty_cache()
-    emit({"phase": "train", "check": "grads_vs_use_kernel_false", "depth": 2,
+    emit({"phase": "train", "check": "grads_vs_use_kernel_false", "arch": arch, "depth": 2,
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "results": out,
           "tol": "1e-4 * max(1, max|g|) fp32, 2e-2 * max|g| bf16, per leaf"})
 
@@ -1435,8 +1624,10 @@ def train_reduced():
     on the card: 6 steps with a checkpoint every 3; a failure injected at
     step 4 and a resume, whose losses equal the uninterrupted run's and
     the CPU's (rtol 1e-4); then the compressed DP step on a one-rank NCCL
-    group for 3 steps (the loss falls, as tests/test_training.py holds).
-    Returns the card's launches over these runs."""
+    group for 3 steps (the loss falls, as tests/test_training.py holds);
+    then the reduced jamba (fp32, 2 x 16, 4 steps; K1 and K3 forward and
+    backward, MoE) through ``train_loop``, its losses the CPU's (rtol
+    1e-4). Returns the card's launches over these runs."""
     kw = dict(steps=6, ckpt_every=3, global_batch=2, seq_len=16, log_every=100)
     reset_counts()  # -- the reduced training path starts here
     with tempfile.TemporaryDirectory() as tmp:
@@ -1471,10 +1662,33 @@ def train_reduced():
             launches[n] += c - before[n]
     finally:
         dist.destroy_process_group()
+
+    # the reduced jamba: K1 and K3, forward and backward, and MoE
+    jkw = dict(steps=4, ckpt_every=100, global_batch=2, seq_len=16, log_every=100)
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        before = counts()
+        _, jamba, _ = train_loop(JAMBA_ARCH, ckpt_dir=f"{tmp}/a", device="cuda", **jkw)
+        jamba_launches = {n: c - before[n] for n, c in counts().items()}
+        jamba_s = time.monotonic() - t0
+        _, jamba_cpu, _ = train_loop(JAMBA_ARCH, ckpt_dir=f"{tmp}/b", device="cpu", **jkw)
+        jamba_cpu_s = time.monotonic() - t0 - jamba_s
+    for n, c in jamba_launches.items():
+        launches[n] += c
     emit({"phase": "train", "check": "reduced_loop_resume_and_dp", "arch": cfg.name,
           "losses_uninterrupted": full, "losses_resumed": resumed, "losses_cpu": cpu,
           "injected_failure_raised": failed, "dp_nccl_one_rank_losses": dp_losses,
+          "jamba_losses": jamba, "jamba_losses_cpu": jamba_cpu,
+          "jamba_launches": jamba_launches, "jamba_seconds": [jamba_s, jamba_cpu_s],
           "launches": launches, "rtol": 1e-4})
+    jcfg = ARCHS[JAMBA_ARCH].reduced()
+    want = {**dict.fromkeys(KERNELS, 0), fa.NAME: 2 * jcfg.num_attn_layers,
+            fab.NAME: jcfg.num_attn_layers, ssd.NAME: 2 * jcfg.num_mamba_layers,
+            ssdb.NAME: jcfg.num_mamba_layers}
+    check(jamba_launches == {n: jkw["steps"] * c for n, c in want.items()},
+          f"reduced jamba launches {jamba_launches}, want {jkw['steps']} x {want}")
+    check(np.allclose(jamba, jamba_cpu, rtol=1e-4, atol=0),
+          f"reduced jamba card losses {jamba} != CPU {jamba_cpu}")
     check(failed, "the injected failure did not raise")
     check(len(resumed) == 3 and np.allclose(resumed, full[-3:], rtol=1e-4, atol=0),
           f"resumed losses {resumed} != {full[-3:]}")
@@ -1485,43 +1699,58 @@ def train_reduced():
 
 def main():
     t_start = time.monotonic()
-    smi = phase_card()
-    phase_build()
-    timings = {fa.NAME: phase_kernels(), fab.NAME: phase_kernels_bwd(),
-               dec.NAME: phase_kernels_decode(), ssd.NAME: phase_kernels_ssd()}
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.monotonic()
+        out = fn(*args, **kw)
+        seconds[name] = seconds.get(name, 0.0) + time.monotonic() - t0
+        return out
+
+    smi = timed("card", phase_card)
+    timed("build", phase_build)
+    timings = {fa.NAME: timed("kernels", phase_kernels),
+               fab.NAME: timed("kernels_bwd", phase_kernels_bwd),
+               dec.NAME: timed("kernels_decode", phase_kernels_decode),
+               ssd.NAME: timed("kernels_ssd", phase_kernels_ssd),
+               ssdb.NAME: timed("kernels_ssd_bwd", phase_kernels_ssd_bwd)}
     paths = {name: dict.fromkeys(("reduced", "full_width", "mamba_reduced", "mamba_full",
                                   "gateway", "prefill", "decode", "moe_full", "moe_prefill",
                                   "moe_decode", "whisper_prefill", "whisper_decode",
-                                  "zoo_reduced", "train", "train_reduced"), 0)
+                                  "zoo_reduced", "train", "train_reduced", "train_mamba"),
+                                 0)
              for name in KERNELS}
 
     def add(path, launches):
         for name, n in launches.items():
             paths[name][path] += n
 
-    add("reduced", phase_reduced("reduced", "qwen2.5-3b"))
-    add("full_width", phase_full("full", "qwen2.5-3b", "qwen"))
-    add("mamba_reduced", phase_reduced("mamba_reduced", "mamba2-780m"))
-    add("mamba_full", phase_full("mamba_full", "mamba2-780m", "mamba"))
-    add("moe_full", phase_full("moe_full", "olmoe-1b-7b", "olmoe"))
-    paths[fa.NAME]["gateway"] = phase_gateway()
-    phase_decode("qwen2.5-3b", paths)
-    phase_decode("mamba2-780m", paths)
-    phase_decode("olmoe-1b-7b", paths, path="moe_")
-    phase_decode("whisper-small", paths, phase="whisper_decode", path="whisper_",
-                 prompt_len=WHISPER_PROMPT)
-    decode_past_cache()
-    add("zoo_reduced", phase_zoo_reduced())
-    add("train", phase_train())
-    train_grad_check()
-    add("train_reduced", train_reduced())
+    add("reduced", timed("reduced", phase_reduced, "reduced", "qwen2.5-3b"))
+    add("full_width", timed("full", phase_full, "full", "qwen2.5-3b", "qwen"))
+    add("mamba_reduced", timed("mamba_reduced", phase_reduced, "mamba_reduced", "mamba2-780m"))
+    add("mamba_full", timed("mamba_full", phase_full, "mamba_full", "mamba2-780m", "mamba"))
+    add("moe_full", timed("moe_full", phase_full, "moe_full", "olmoe-1b-7b", "olmoe"))
+    paths[fa.NAME]["gateway"] = timed("gateway", phase_gateway)
+    timed("decode", phase_decode, "qwen2.5-3b", paths)
+    timed("mamba_decode", phase_decode, "mamba2-780m", paths)
+    timed("moe_decode", phase_decode, "olmoe-1b-7b", paths, path="moe_")
+    timed("whisper_decode", phase_decode, "whisper-small", paths, phase="whisper_decode",
+          path="whisper_", prompt_len=WHISPER_PROMPT)
+    timed("decode_past_cache", decode_past_cache)
+    add("zoo_reduced", timed("zoo_reduced", phase_zoo_reduced))
+    add("train", timed("train", phase_train, TRAIN_ARCH, "train"))
+    timed("train_grad_check", train_grad_check, TRAIN_ARCH)
+    add("train_reduced", timed("train_reduced", train_reduced))
+    add("train_mamba", timed("train_mamba", phase_train, MAMBA_TRAIN_ARCH, "train_mamba"))
+    timed("train_grad_check_mamba", train_grad_check, MAMBA_TRAIN_ARCH)
     main_path = {fa.NAME: "full_width", fab.NAME: "train", dec.NAME: "decode",
-                 ssd.NAME: "mamba_full"}
+                 ssd.NAME: "mamba_full", ssdb.NAME: "train_mamba"}
     replaces = {
         fa.NAME: "src/repro/kernels/flash_attention.py:37",
         fab.NAME: "jax.grad of src/repro/models/layers.py:164",
         dec.NAME: "src/repro/kernels/decode_attention.py:29",
         ssd.NAME: "src/repro/kernels/ssd_scan.py:38",
+        ssdb.NAME: "jax.grad of src/repro/models/mamba2.py:39",
     }
     for name in KERNELS:
         check(paths[name][main_path[name]] > 0, f"{name} never launched on its path")
@@ -1529,9 +1758,11 @@ def main():
                        (fa.NAME, "whisper_prefill"), (dec.NAME, "whisper_decode"),
                        (fa.NAME, "zoo_reduced"), (dec.NAME, "zoo_reduced"),
                        (ssd.NAME, "zoo_reduced"), (fa.NAME, "train"),
-                       (fa.NAME, "train_reduced"), (fab.NAME, "train_reduced")):
+                       (fa.NAME, "train_reduced"), (fab.NAME, "train_reduced"),
+                       (ssd.NAME, "train_mamba"), (ssd.NAME, "train_reduced"),
+                       (ssdb.NAME, "train_reduced")):
         check(paths[name][path] > 0, f"{name} never launched on the {path} path")
-    emit({"phase": "wall", "seconds": time.monotonic() - t_start})
+    emit({"phase": "wall", "seconds": time.monotonic() - t_start, "by_phase": seconds})
     emit({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",

@@ -42,7 +42,8 @@
 //      S_c = x^T (dt w B), w = exp(cs_last - cs), into scratch (fp32).
 //   3. ssd_state_pass_kernel, grid (P*N / 256, B*H): the recurrence over
 //      chunks in fp32 on the CUDA cores, overwriting S_c with the state
-//      entering chunk c and writing the final state.
+//      entering chunk c and writing the final state. The backward launches
+//      it too, through the ssd_state_pass entry point.
 //   4. ssd_chunk_scan_kernel, grid (n_c, H, B): y = exp(cs_l) C . state_in^T
 //      + M . x with M[l, s] = CB[l, s] exp(cs_l - cs_s) dt_s (s <= l).
 // Every product is mma.sync m16n8k16 bf16 -> fp32. x, B and C are bf16 and
@@ -771,6 +772,23 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A, const 
       x, static_cast<const float*>(dt), static_cast<const float*>(A), Bm, Cm,
       static_cast<const float*>(init), y, static_cast<float*>(fs), B, S, H, P, N, chunk, x_rs,
       b_rs, c_rs, static_cast<cudaStream_t>(stream)));
+}
+
+// The pass over chunks alone (ssd_state_pass_kernel), in place, for any P
+// and N: states (B, n_c, H, P, N) become the state entering each chunk and
+// fs (B, H, P, N) gets the final state; decay (B, H, n_c); init (B, H, P, N)
+// or null for zeros; all fp32. The backward (ssd_scan_bwd.cu) runs it
+// forwards, and on chunks in reversed order to run the recurrence backwards.
+extern "C" int ssd_state_pass(void* states, const void* decay, const void* init, void* fs,
+                              int B, int H, int P, int N, int nc, void* stream) {
+  if (B <= 0 || H <= 0 || P <= 0 || N <= 0 || nc <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int PN = P * N;
+  const dim3 grid((PN + tc::kPassThreads - 1) / tc::kPassThreads, B * H);
+  tc::ssd_state_pass_kernel<<<grid, tc::kPassThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(states), static_cast<const float*>(decay),
+      static_cast<const float*>(init), static_cast<float*>(fs), H, PN, nc);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // bf16 route: launches the kernels named in `stages` (1 chunk_cb, 2

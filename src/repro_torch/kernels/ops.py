@@ -12,11 +12,11 @@ Unlike the JAX ``ops.ssd_scan``, which takes its oracle whenever
 ``initial_state`` is given, the CUDA SSD kernel takes an initial state, so
 here too the choice follows the device alone.
 
-Gradients: on the card ``flash_attention`` is differentiable (its wrapper
-goes through an autograd Function whose backward is K1's backward kernel);
-``ssd_scan`` raises ``NotImplementedError`` for an input that requires
-grad, since K3 has no backward yet. The plain versions are differentiable
-by autograd, so every family trains on the CPU.
+Gradients: on the card ``flash_attention`` and ``ssd_scan`` are
+differentiable: each wrapper goes through an autograd Function whose
+backward is a hand-written kernel (K1's backward, and K3's in
+``ssd_scan_bwd``). The plain versions are differentiable by autograd, so
+every family trains on the CPU and on the card.
 """
 from __future__ import annotations
 

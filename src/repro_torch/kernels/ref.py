@@ -16,6 +16,9 @@
   them.
 * ``ssd_scan`` is ``repro.models.mamba2.ssd_chunked_ref`` (with
   ``_segsum``): Mamba2's chunked SSD scan with an optional initial state.
+  ``ssd_scan_bwd`` is its gradient in the steps of K3's backward kernel
+  (the JAX package lets XLA differentiate the scan); only the tests and
+  ``chip_smoke.py`` use it.
 
 They live here (not in ``models``) so that ``kernels`` never imports
 ``models``; ``models.layers`` re-exports the first two as
@@ -376,6 +379,94 @@ def ssd_scan(
     states, chunk_decay = ssd_chunk_state(x, dt, A, Bm, chunk=chunk)
     prev_states, final = ssd_state_pass(states, chunk_decay, initial_state)
     return ssd_chunk_scan(x, dt, A, Cm, cb, prev_states, chunk=chunk), final
+
+
+def ssd_scan_bwd(x, dt, A, Bm, Cm, initial_state, dy, dfinal_state, *, chunk: int = 128):
+    """The gradient of ``ssd_scan``: (dx, ddt, dA, dB, dC, dinitial_state)
+    from the output's and the final state's gradients (``dfinal_state``
+    None is zeros), in fp32, chunk by chunk, in the CUDA kernel's steps
+    (csrc/ssd_scan_bwd.cu). dx, dB and dC come back in x's dtype, the rest
+    in fp32; dinitial_state is the gradient of a zero initial state when
+    ``initial_state`` is None.
+
+    Per (sequence, chunk, head), with u_s = x_s dt_s, cs the chunk's
+    inclusive cumsum of dt A, E[l, s] = exp(cs_l - cs_s) for s <= l (0
+    above), S_in the state entering the chunk and Ŝ the gradient of the
+    state leaving it:
+
+    * the states entering each chunk, recomputed by the forward pass;
+    * the reverse pass: dS_in = exp(cs_T) Ŝ + sum_l exp(cs_l) dy_l C_l^T,
+      Ŝ of the last chunk is dfinal_state, Ŝ(c - 1) = dS_in(c), and
+      dinitial_state = dS_in(0);
+    * du_s = sum_{l >= s} (C_l.B_s) E[l, s] dy_l + exp(cs_T - cs_s) Ŝ B_s,
+      dx = du dt and ddt's direct part <du_s, x_s>;
+    * dC_l = exp(cs_l) S_in^T dy_l + sum_{s <= l} E[l, s] <dy_l, u_s> B_s,
+      dB_s = sum_{l >= s} E[l, s] <dy_l, u_s> C_l + exp(cs_T - cs_s) Ŝ^T u_s,
+      both summed over heads;
+    * dcs from W[l, s] = (C_l.B_s) E[l, s] <dy_l, u_s> and V_s = exp(cs_T -
+      cs_s) u_s^T Ŝ B_s: dcs_l = sum_s W[l, s] - sum_l' W[l', l] +
+      exp(cs_l) <dy_l, S_in C_l> - V_l, and the last position adds
+      exp(cs_T) <Ŝ, S_in> + sum_s V_s; then da = the reverse cumsum of dcs
+      in the chunk, ddt += A da and dA = sum dt da.
+
+    A ragged last chunk is dt = 0 padding, as in the forward: its padded
+    rows add nothing and their gradients are dropped."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    T = min(chunk, S)
+    f32 = torch.float32
+    u = _chunk_xdt(x, dt, T)                      # (B,c,l,H,P)
+    xc, dtc, dyc = _chunked(x, T), _chunked(dt, T), _chunked(dy, T)
+    Bc, Cc = _chunked(Bm, T), _chunked(Cm, T)     # (B,c,l,N)
+    _, cs = _chunk_cumsum(dt, A, T)               # (B,c,l,H)
+    nc = cs.shape[1]
+    e_cs = torch.exp(cs)                          # exp(cs_l)
+    w = torch.exp(cs[:, :, -1:] - cs)             # exp(cs_T - cs_s)
+    decay = torch.exp(cs[:, :, -1])               # (B,c,H)
+
+    # the states entering each chunk, and the reverse pass of their gradients
+    states, _ = ssd_chunk_state(x, dt, A, Bm, chunk=T)
+    s_in, _ = ssd_state_pass(states, decay, initial_state)  # (B,c,H,P,N)
+    adj = torch.einsum("bclh,bclhp,bcln->bchpn", e_cs, dyc, Cc)
+    s = (dfinal_state.to(f32) if dfinal_state is not None
+         else torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device))
+    hat = [None] * nc
+    for c in reversed(range(nc)):
+        hat[c] = s
+        s = s * decay[:, c, :, None, None] + adj[:, c]
+    hat, dinit = torch.stack(hat, dim=1), s      # (B,c,H,P,N), (B,H,P,N)
+
+    csh = cs.permute(0, 1, 3, 2)                  # (B,c,H,l)
+    ii = torch.arange(T, device=x.device)
+    E = torch.where(ii[:, None] >= ii[None, :],
+                    torch.exp(csh[..., :, None] - csh[..., None, :]), 0.0)  # (B,c,H,l,s)
+    cb = torch.einsum("bcln,bcsn->bcls", Cc, Bc)
+    dyu = torch.einsum("bclhp,bcshp->bchls", dyc, u)
+    M1 = cb[:, :, None] * E                       # (C_l.B_s) E[l, s]
+    M2 = E * dyu                                  # E[l, s] <dy_l, u_s>
+    du_state = w[..., None] * torch.einsum("bchpn,bcsn->bcshp", hat, Bc)
+    du = torch.einsum("bchls,bclhp->bcshp", M1, dyc) + du_state
+    dC_state = e_cs[..., None] * torch.einsum("bclhp,bchpn->bclhn", dyc, s_in)
+    dC = dC_state.sum(3) + torch.einsum("bchls,bcsn->bcln", M2, Bc)
+    dB_state = w[..., None] * torch.einsum("bcshp,bchpn->bcshn", u, hat)
+    dB = torch.einsum("bchls,bcln->bcsn", M2, Cc) + dB_state.sum(3)
+
+    W = M1 * dyu                                  # (B,c,H,l,s)
+    V = (u * du_state).sum(-1)                    # (B,c,s,H)
+    dcs = (W.sum(-1) - W.sum(-2)).permute(0, 1, 3, 2)
+    dcs = dcs + torch.einsum("bclhn,bcln->bclh", dC_state, Cc) - V
+    last = decay * (hat * s_in).sum((-2, -1)) + V.sum(2)  # (B,c,H)
+    dcs = torch.cat([dcs[:, :, :-1], dcs[:, :, -1:] + last[:, :, None]], dim=2)
+    da = torch.flip(torch.cumsum(torch.flip(dcs, (2,)), dim=2), (2,))
+    ddt = (du * xc).sum(-1) + A.to(f32) * da
+    dA = (dtc * da).sum((0, 1, 2))
+
+    def unchunk(t):
+        return t.reshape(Bsz, nc * T, *t.shape[3:])[:, :S]
+
+    dx = unchunk(du * dtc[..., None])
+    return (dx.to(x.dtype), unchunk(ddt), dA, unchunk(dB).to(Bm.dtype),
+            unchunk(dC).to(Cm.dtype), dinit)
 
 
 def _bf16_operand(v: torch.Tensor, split: bool) -> torch.Tensor:

@@ -19,7 +19,7 @@ routes, by dtype:
   x, B and C must start on a 16-byte boundary with positions a multiple of
   16 bytes apart. Its scratch (C B^T, the chunk states, the decays) is
   allocated per call, since the runtime's executor threads launch at once.
-  ``chunk_cb``, ``chunk_state``, ``state_pass`` and ``chunk_scan`` launch
+  ``chunk_cb``, ``chunk_state``, ``pass_states`` and ``chunk_scan`` launch
   one of the four alone, for the tests.
 
 Unlike the TPU kernel it takes ``initial_state``, so ``ops.ssd_scan`` never
@@ -34,6 +34,12 @@ to the other route. Returns (y (B, S, H, P) in x's dtype, final_state
 (B, H, P, N) fp32), both allocated here; the kernels run on the current
 stream and nothing synchronises. ``launches`` counts one per call of
 ``ssd_scan`` that launched its kernels (and nothing else).
+
+Under grad mode, an input that requires grad sends the call through
+``SSDScan``, an autograd Function whose backward is the hand-written
+kernel of ``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``); it saves only the
+inputs. ``pass_states`` launches the state pass alone, in place, for any
+P and N: the backward runs it forwards and on reversed chunks.
 """
 from __future__ import annotations
 
@@ -75,6 +81,9 @@ def _kernel():
         lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
         lib.ssd_scan_smem_limit.argtypes = []
         lib.ssd_scan_smem_limit.restype = ctypes.c_longlong
+        lib.ssd_state_pass.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        lib.ssd_state_pass.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -175,6 +184,86 @@ def bf16_scratch(Bsz, S, H, P, N, chunk, device):
             torch.empty((Bsz, H, nc), **f32))
 
 
+def _forward(x, dt, A, Bm, Cm, initial_state, chunk: int, strides):
+    """Launch the forward kernels; (y, final_state). ``chunk`` is already
+    min(chunk, S)."""
+    global launches
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    dims = (Bsz, S, H, P, N, chunk)
+    y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
+    fs = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    if x.dtype == torch.bfloat16:
+        cb, states, decay = bf16_scratch(*dims, x.device)
+        launch_bf16(sum(STAGES.values()), dims, strides, x=x, dt=dt, A=A, Bm=Bm, Cm=Cm,
+                    init=initial_state, y=y, fs=fs, cb=cb, states=states, decay=decay)
+    else:
+        init_ptr = initial_state.data_ptr() if initial_state is not None else None
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = _kernel().ssd_scan_fwd(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                                         Bm.data_ptr(), Cm.data_ptr(), init_ptr, y.data_ptr(),
+                                         fs.data_ptr(), *dims, *strides, stream)
+        if err != 0:
+            raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
+    with _count_lock:  # the runtime's executor threads may launch concurrently
+        launches += 1
+    return y, fs
+
+
+def _checked(x, dt, A, Bm, Cm, initial_state, chunk: int):
+    """Raise ValueError for anything the forward kernels do not take;
+    return (min(chunk, S), the row strides of x, B and C)."""
+    strides = check_inputs(x, dt, A, Bm, Cm, initial_state)
+    _, S, _, P = x.shape
+    N = Bm.shape[-1]
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, not {chunk}")
+    chunk = min(chunk, S)
+    if x.dtype == torch.bfloat16:
+        check_bf16(P, N, chunk, (x, Bm, Cm), strides)
+    else:
+        lib = _kernel()
+        need, limit = lib.ssd_scan_smem_bytes(chunk, P, N), lib.ssd_scan_smem_limit()
+        if need > limit:
+            raise ValueError(f"chunk={chunk}, P={P}, N={N} needs {need} bytes of shared "
+                             f"memory; a block has {limit}")
+    return chunk, strides
+
+
+class SSDScan(torch.autograd.Function):
+    """K3 with a gradient: the forward kernels, and the hand-written
+    backward kernel (``ssd_scan_bwd``), which recomputes the chunk states
+    from the saved inputs. Both raise ValueError for what they do not take
+    (a CPU tensor, a chunk above ``ssd_scan_bwd.MAX_CHUNK``) before
+    anything runs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, initial_state, chunk: int):
+        from repro_torch.kernels import ssd_scan_bwd as _bwd  # imports this module
+
+        chunk, strides = _checked(x, dt, A, Bm, Cm, initial_state, chunk)
+        _bwd.check_chunk(chunk)
+        y, fs = _forward(x, dt, A, Bm, Cm, initial_state, chunk, strides)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, initial_state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, fs
+
+    @staticmethod
+    def backward(ctx, dy, dfinal_state):
+        from repro_torch.kernels import ssd_scan_bwd as _bwd
+
+        x, dt, A, Bm, Cm, initial_state = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dfinal_state is not None:
+            dfinal_state = dfinal_state.contiguous()
+        grads = _bwd.ssd_scan_bwd(x, dt, A, Bm, Cm, initial_state, dy, dfinal_state,
+                                  chunk=ctx.chunk)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
+                None)
+
+
 def ssd_scan(
     x: torch.Tensor,   # (B, S, H, P)
     dt: torch.Tensor,  # (B, S, H) (softplus'd)
@@ -187,47 +276,14 @@ def ssd_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunked SSD scan on the card. Returns (y, final_state).
 
-    The kernel has no backward yet: under grad mode an input that requires
-    grad raises ``NotImplementedError`` (the output would carry no
-    gradient to it). Mamba2 and jamba train on the CPU, where the plain
-    version is differentiable."""
-    global launches
+    Differentiable when a gradient is being taken: an input that requires
+    grad sends the call through ``SSDScan``, whose backward is the
+    hand-written kernel of ``ssd_scan_bwd`` (chunk at most 128)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, initial_state)):
-        raise NotImplementedError(
-            "the SSD scan kernel (K3) has no backward yet, so Mamba2 and jamba cannot "
-            "train on the card: ROADMAP Queue 1, 'K3's backward'")
-    strides = check_inputs(x, dt, A, Bm, Cm, initial_state)
-    Bsz, S, H, P = x.shape
-    N = Bm.shape[-1]
-    if chunk <= 0:
-        raise ValueError(f"chunk must be positive, not {chunk}")
-    chunk = min(chunk, S)
-    dims = (Bsz, S, H, P, N, chunk)
-    y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
-    fs = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-    if x.dtype == torch.bfloat16:
-        check_bf16(P, N, chunk, (x, Bm, Cm), strides)
-        cb, states, decay = bf16_scratch(*dims, x.device)
-        launch_bf16(sum(STAGES.values()), dims, strides, x=x, dt=dt, A=A, Bm=Bm, Cm=Cm,
-                    init=initial_state, y=y, fs=fs, cb=cb, states=states, decay=decay)
-    else:
-        lib = _kernel()
-        need, limit = lib.ssd_scan_smem_bytes(chunk, P, N), lib.ssd_scan_smem_limit()
-        if need > limit:
-            raise ValueError(f"chunk={chunk}, P={P}, N={N} needs {need} bytes of shared "
-                             f"memory; a block has {limit}")
-        init_ptr = initial_state.data_ptr() if initial_state is not None else None
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.ssd_scan_fwd(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                                   Cm.data_ptr(), init_ptr, y.data_ptr(), fs.data_ptr(),
-                                   *dims, *strides, stream)
-        if err != 0:
-            raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
-    with _count_lock:  # the runtime's executor threads may launch concurrently
-        launches += 1
-    return y, fs
+        return SSDScan.apply(x, dt, A, Bm, Cm, initial_state, chunk)
+    chunk, strides = _checked(x, dt, A, Bm, Cm, initial_state, chunk)
+    return _forward(x, dt, A, Bm, Cm, initial_state, chunk, strides)
 
 
 # ---- the bf16 route's four kernels one at a time, for the tests: the
@@ -277,23 +333,31 @@ def chunk_state(x, dt, A, Bm, *, chunk: int = 128):
     return states, decay
 
 
-def state_pass(states, decay, initial_state=None):
-    """``ssd_state_pass_kernel`` alone on a copy of ``states``: returns (the
-    state entering each chunk (B, n_c, H, P, N), the final state)."""
+def pass_states(states, decay, initial_state, fs) -> None:
+    """``ssd_state_pass_kernel`` in place, through the ``ssd_state_pass``
+    entry point (any P and N): ``states`` (B, n_c, H, P, N) become the
+    state entering each chunk and ``fs`` (B, H, P, N) gets the final
+    state; ``decay`` (B, H, n_c); ``initial_state`` None is zeros. All
+    contiguous fp32 CUDA tensors on one device; raises ValueError
+    otherwise. The backward runs it on chunks in reversed order too. Not
+    counted in ``launches``."""
     Bsz, nc, H, P, N = states.shape
-    init_ok = initial_state is None or (tuple(initial_state.shape) == (Bsz, H, P, N)
-                                        and initial_state.dtype == torch.float32
-                                        and initial_state.is_contiguous())
-    if (states.dtype != torch.float32 or tuple(decay.shape) != (Bsz, H, nc) or not init_ok
-            or not states.is_contiguous() or not decay.is_contiguous()):
-        raise ValueError("need contiguous fp32 states (B, n_c, H, P, N), decay (B, H, n_c) "
-                         "and initial_state (B, H, P, N)")
-    entering = states.clone()
-    fs = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=states.device)
-    # the pass needs only n_c: n_c positions in chunks of one
-    launch_bf16(STAGES["ssd_state_pass_kernel"], (Bsz, nc, H, P, N, 1), init=initial_state,
-                fs=fs, states=entering, decay=decay.float())
-    return entering, fs
+    want = {"states": (states, (Bsz, nc, H, P, N)), "decay": (decay, (Bsz, H, nc)),
+            "fs": (fs, (Bsz, H, P, N))}
+    if initial_state is not None:
+        want["initial_state"] = (initial_state, (Bsz, H, P, N))
+    for name, (t, shape) in want.items():
+        if (tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous()
+                or not t.is_cuda or t.device != states.device):
+            raise ValueError(f"{name} must be a contiguous fp32 {shape} CUDA tensor on "
+                             f"{states.device}")
+    init_ptr = initial_state.data_ptr() if initial_state is not None else None
+    with torch.cuda.device(states.device):
+        err = _kernel().ssd_state_pass(states.data_ptr(), decay.data_ptr(), init_ptr,
+                                       fs.data_ptr(), Bsz, H, P, N, nc,
+                                       torch.cuda.current_stream(states.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_state_pass launch failed: CUDA error {err}")
 
 
 def chunk_scan(x, dt, A, Cm, cb, states_in, *, chunk: int = 128) -> torch.Tensor:

@@ -15,6 +15,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.kernels import ssd_scan_bwd as ssd_bwd  # noqa: E402
 
 # tests/test_kernels.py's sweep plus the serving shapes of qwen2.5-3b:
 # B, Sq, Sk, Hq, Hkv, Dh, causal
@@ -300,7 +301,8 @@ def test_ssd_state_pass_kernel_matches_plain(cuda, B, S, H, P, N, chunk, with_in
     ps, pd = ref.ssd_chunk_state(x, dt, A, Bm, chunk=chunk)
     s0 = (torch.randn((B, H, P, N), device=cuda,
                       generator=torch.Generator(cuda).manual_seed(0)) if with_init else None)
-    entering, fs = ssd.state_pass(ps, pd.permute(0, 2, 1).contiguous(), s0)
+    entering, fs = ps.clone(), torch.empty((B, H, P, N), device=cuda)
+    ssd.pass_states(entering, pd.permute(0, 2, 1).contiguous(), s0, fs)
     pe, pfs = ref.ssd_state_pass(ps, pd, s0)
     np.testing.assert_allclose(entering.cpu().numpy(), pe.cpu().numpy(), atol=1e-6, rtol=1e-6)
     np.testing.assert_allclose(fs.cpu().numpy(), pfs.cpu().numpy(), atol=1e-6, rtol=1e-6)
@@ -679,30 +681,145 @@ def test_flash_backward_kernel_refuses_what_it_does_not_take(cuda):
             fab.flash_attention_bwd(**args, causal=True)
 
 
+# K3's backward: the sweep of tests/test_torch_ssd_bwd.py plus the reduced
+# and full-width mamba2-780m training shapes and the bf16 route's edges
+SSD_BWD_SHAPES = [
+    (2, 64, 4, 16, 16, 16),
+    (1, 128, 2, 32, 64, 32),
+    (2, 100, 3, 16, 32, 32),      # a ragged last chunk
+    (1, 256, 8, 64, 128, 64),
+    (2, 10, 2, 16, 16, 16),       # S < chunk
+    (2, 40, 2, 128, 128, 64),     # jamba's P = 128, S < chunk
+    (2, 45, 3, 32, 48, 10),       # chunk 10
+    (1, 200, 4, 64, 128, 128),    # a ragged last chunk of 72 rows
+    (2, 16, 8, 16, 16, 16),       # reduced mamba2-780m
+    (4, 1024, 48, 64, 128, 128),  # full-width mamba2-780m training
+]
+SSD_BWD_TOL = {"float32": 1e-3, "bfloat16": 3e-2}  # * max|g|, tests/test_kernels.py
+
+
+def _ssd_bwd_args(device, dtype, B, S, H, P, N, with_init=True, seed=0):
+    """The forward's inputs, an initial state (or None), dy and a nonzero
+    dfinal_state, from a seed."""
+    x, dt, A, Bm, Cm = _ssd_inputs(device, dtype, B, S, H, P, N, seed)
+    rng = np.random.default_rng(seed + 1)
+    f32 = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device)  # noqa: E731
+    s0 = f32(B, H, P, N) if with_init else None
+    dy = f32(B, S, H, P).to(x.dtype)
+    return x, dt, A, Bm, Cm, s0, dy, f32(B, H, P, N)
+
+
+def _close_grads(got, want, tol):
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dinit"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        bound = tol * w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= bound and torch.isfinite(g.float()).all(), f"{name}: {err} > {bound}"
+
+
 @pytest.mark.requires_cuda
-def test_ssd_kernel_refuses_a_gradient(cuda):
-    """K3 has no backward: an input that requires grad raises under grad
-    mode and not under no_grad."""
-    B, S, H, P, N = 1, 16, 2, 16, 16
-    x = torch.randn(B, S, H, P, device=cuda, requires_grad=True)
-    dt = torch.rand(B, S, H, device=cuda)
-    A = -torch.rand(H, device=cuda)
-    Bm, Cm = torch.randn(B, S, N, device=cuda), torch.randn(B, S, N, device=cuda)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=16)
+@pytest.mark.parametrize("with_init", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_BWD_SHAPES)
+def test_ssd_backward_kernel_matches_plain(cuda, dtype, with_init, B, S, H, P, N, chunk):
+    """csrc/ssd_scan_bwd.cu against ref.ssd_scan_bwd on the same inputs,
+    per gradient within 1e-3 (fp32) or 3e-2 (bf16) * max|g|; one count."""
+    args = _ssd_bwd_args(cuda, dtype, B, S, H, P, N, with_init)
+    before = ssd_bwd.launches
+    got = ssd_bwd.ssd_scan_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_bwd.launches == before + 1
+    _close_grads(got, ref.ssd_scan_bwd(*args, chunk=chunk), SSD_BWD_TOL[dtype])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_backward_kernel_reads_strided_views_and_is_deterministic(cuda, dtype):
+    """x, B and C as slices of one fused tensor (the Mamba2 block's layout)
+    give the gradients of contiguous inputs, and two calls give the same
+    bits; a zero dfinal_state may be None."""
+    B, S, H, P, N, chunk = 2, 100, 4, 16, 32, 32
+    x, dt, A, Bm, Cm, s0, dy, dfs = _ssd_bwd_args(cuda, dtype, B, S, H, P, N)
+    fused = torch.cat([x.reshape(B, S, H * P), Bm, Cm], dim=-1)
+    xv, Bv, Cv = torch.split(fused, [H * P, N, N], dim=-1)
+    got = ssd_bwd.ssd_scan_bwd(xv.reshape(B, S, H, P), dt, A, Bv, Cv, s0, dy, dfs, chunk=chunk)
+    assert all(g.is_contiguous() for g in got)
+    _close_grads(got, ref.ssd_scan_bwd(x, dt, A, Bm, Cm, s0, dy, dfs, chunk=chunk),
+                 SSD_BWD_TOL[dtype])
+    again = ssd_bwd.ssd_scan_bwd(xv.reshape(B, S, H, P), dt, A, Bv, Cv, s0, dy, dfs,
+                                 chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    none = ssd_bwd.ssd_scan_bwd(x, dt, A, Bm, Cm, s0, dy, None, chunk=chunk)
+    zero = ssd_bwd.ssd_scan_bwd(x, dt, A, Bm, Cm, s0, dy, torch.zeros_like(dfs), chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(none, zero))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_backward_parts_compose(cuda, dtype):
+    """The three kernels and the two state passes launched one at a time
+    (as chip_smoke.py times them) give the whole call's bits; buffers of
+    another shape are refused."""
+    B, S, H, P, N, chunk = 2, 100, 3, 16, 32, 32
+    x, dt, A, Bm, Cm, _, dy, _ = _ssd_bwd_args(cuda, dtype, B, S, H, P, N, with_init=False)
+    whole = ssd_bwd.ssd_scan_bwd(x, dt, A, Bm, Cm, None, dy, None, chunk=chunk)
+    bufs = ssd_bwd.new_buffers(x, Bm, chunk)
+    ssd_bwd.launch_parts(1, x, dt, A, Bm, Cm, dy, bufs, chunk=chunk)
+    ssd.pass_states(bufs["states"], bufs["decay"], None, bufs["fs"])
+    ssd.pass_states(bufs["adj"], bufs["decay_rev"], None, bufs["dinit"])
+    ssd_bwd.launch_parts(2, x, dt, A, Bm, Cm, dy, bufs, chunk=chunk)
+    ssd_bwd.launch_parts(4, x, dt, A, Bm, Cm, dy, bufs, chunk=chunk)
+    parts = [bufs[k] for k in ("dx", "ddt", "dA", "dB", "dC", "dinit")]
+    assert all(torch.equal(a, b) for a, b in zip(whole, parts))
+    bufs["dBp"] = bufs["dBp"][:1]
+    with pytest.raises(ValueError, match="dBp"):
+        ssd_bwd.launch_parts(4, x, dt, A, Bm, Cm, dy, bufs, chunk=chunk)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_gradient_flows_through_the_kernel(cuda, dtype):
+    """torch.autograd.grad through ops.ssd_scan on the card (the SSDScan
+    Function, whose backward is the kernel: its count rises, the forward's
+    once) against the same through use_kernel=False, for x, dt, A, B, C and
+    the initial state, with both outputs carrying a gradient."""
+    B, S, H, P, N, chunk = 2, 100, 3, 16, 32, 32
+    x, dt, A, Bm, Cm, s0, dy, dfs = _ssd_bwd_args(cuda, dtype, B, S, H, P, N)
+    grads = {}
+    for use_kernel in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm, s0)]
+        before = (ssd.launches, ssd_bwd.launches)
+        y, fs = ops.ssd_scan(*leaves[:5], chunk=chunk, initial_state=leaves[5],
+                             use_kernel=use_kernel)
+        grads[use_kernel] = torch.autograd.grad((y, fs), leaves, (dy, dfs))
+        torch.cuda.synchronize()
+        n = int(use_kernel)
+        assert (ssd.launches - before[0], ssd_bwd.launches - before[1]) == (n, n)
+    _close_grads(grads[True], grads[False], SSD_BWD_TOL[dtype])
+
+
+@pytest.mark.requires_cuda
+def test_ssd_kernel_refuses_a_chunk_its_backward_does_not_take(cuda):
+    """Under grad mode a chunk above 128 raises before the forward runs; the
+    forward alone (fp32) takes it."""
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, "float32", 1, 160, 1, 16, 16)
+    before = ssd.launches
+    with pytest.raises(ValueError, match="chunk"):
+        ops.ssd_scan(x.requires_grad_(), dt, A, Bm, Cm, chunk=160)
+    assert ssd.launches == before
     with torch.no_grad():
-        y, _ = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=16)
+        y, _ = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=160)
     assert torch.isfinite(y).all()
 
 
-def _train_runs(device, steps, sync_check=False):
-    """Three reduced qwen2.5-3b fp32 train steps from the same CPU-drawn
-    weights and batches; returns the (loss, grad_norm) of each."""
+def _train_runs(device, steps, sync_check=False, arch="qwen2.5-3b"):
+    """Reduced fp32 train steps of ``arch`` from the same CPU-drawn weights
+    and batches; returns the (loss, grad_norm) of each."""
     from repro_torch.configs import ARCHS
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.training import OptimizerConfig, init_train_state, make_train_step
 
-    cfg = ARCHS["qwen2.5-3b"].reduced()
+    cfg = ARCHS[arch].reduced()
     opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=steps)
     state = init_train_state(cfg, opt, torch.Generator().manual_seed(0), device)
     data = TokenPipeline(DataConfig(cfg.vocab_size, 2, 16, seed=0))
@@ -744,3 +861,71 @@ def test_train_step_never_waits_for_the_card(cuda):
     the step). The first step, which builds the kernels, runs before."""
     losses = _train_runs(cuda, 3, sync_check=True)
     assert all(np.isfinite(losses).ravel())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-1.5-large-398b"])
+def test_ssm_train_steps_on_the_card_match_the_cpu(cuda, arch):
+    """Three reduced fp32 steps of mamba2 (K3 forward and backward) and jamba
+    (K1 and K3, forward and backward, and MoE) against the same steps on the
+    CPU: loss and grad norm within 1e-4 relative. Per step and Mamba2
+    layer, the forward kernel runs twice (forward and remat recompute) and
+    the backward kernel once."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[arch].reduced()
+    before = (ssd.launches, ssd_bwd.launches, fa.launches, fab.launches)
+    got = _train_runs(cuda, 3, arch=arch)
+    after = (ssd.launches, ssd_bwd.launches, fa.launches, fab.launches)
+    m, a = cfg.num_mamba_layers, cfg.num_attn_layers
+    assert m > 0
+    assert tuple(x - y for x, y in zip(after, before)) == (6 * m, 3 * m, 6 * a, 3 * a)
+    want = _train_runs(torch.device("cpu"), 3, arch=arch)
+    np.testing.assert_allclose(np.array(got), np.array(want), rtol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_mamba_train_step_never_waits_for_the_card(cuda):
+    """As test_train_step_never_waits_for_the_card, for the reduced mamba2:
+    K3's forward and backward kernels (and their buffers and state passes)
+    only queue work."""
+    losses = _train_runs(cuda, 3, sync_check=True, arch="mamba2-780m")
+    assert all(np.isfinite(losses).ravel())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("policy", ["nothing_saveable", "dots_saveable"])
+def test_mamba_gradients_on_the_card_under_both_remat_policies(cuda, policy):
+    """Every leaf's gradient of the reduced mamba2's loss, with K3's kernels
+    and non-reentrant checkpointing under ``policy``, against the CPU's
+    (plain scan, no remat): within 1e-4 * max(1, max|g|); the in_proj
+    gradients (which reach x, B and C through the strided split of the
+    fused projection) are not zero."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+    from repro_torch.training.loss import lm_loss
+
+    cfg0 = ARCHS["mamba2-780m"].reduced()
+    params = init_params(cfg0, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg0.vocab_size, (2, 16), dtype=np.int32))
+    grads = {}
+    for device, cfg in ((cuda, dataclasses.replace(cfg0, remat_policy=policy)),
+                        (torch.device("cpu"), dataclasses.replace(cfg0, remat_policy="none"))):
+        p = _to(params, device)
+        leaves = T.leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        before = ssd_bwd.launches
+        total, _ = lm_loss(cfg, p, {"tokens": toks.to(device)})
+        grads[device.type] = [g.cpu() for g in torch.autograd.grad(total, leaves)]
+        assert ssd_bwd.launches - before == (cfg.num_mamba_layers if device.type == "cuda"
+                                             else 0)
+    for (key, _), g, w in zip(T.items(params), grads["cuda"], grads["cpu"]):
+        bound = 1e-4 * max(1.0, w.abs().max().item())
+        assert (g - w).abs().max().item() <= bound, key
+        if key.split("/")[-1] == "in_proj":
+            assert g.abs().max().item() > 0, key

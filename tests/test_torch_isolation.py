@@ -30,7 +30,8 @@ def _imported_modules(path: Path):
 def test_sources_exist():
     assert (PORT / "core" / "runtime.py").exists()
     assert (ROOT / "chip_smoke.py").exists()
-    for name in ("flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan"):
+    for name in ("flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan",
+                 "ssd_scan_bwd"):
         assert (PORT / "kernels" / "csrc" / f"{name}.cu").exists()
 
 
