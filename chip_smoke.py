@@ -26,8 +26,9 @@ Phases, one JSON line each:
                  K3's backward (the SSD sweep, the edges and the reduced
                  shape in fp32 and bf16, with and without an initial state
                  and a final state's gradient, strided views, bit for bit
-                 against a second call; timed at mamba2-780m's training
-                 shape with each of its five launches alone);
+                 against a second call, bf16 also against the plain
+                 version of its own roundings; timed at mamba2-780m's
+                 training shape with each of its launches alone);
 4. reduced       SageRuntime serves the reduced qwen2.5-3b cold -> warm -> warm;
 5. full          SageRuntime serves the full-width qwen2.5-3b (36 layers,
                  d_model 2048, bf16, random weights from a seed), batch
@@ -85,7 +86,8 @@ Phases, one JSON line each:
 14. train_mamba  mamba2-780m trained at full width (48 layers, d_model
                  1536, SSD heads 48 x 64, state 128, chunk 128), the setup
                  of 13: K3 forward 96 (48 + 48 recomputed) and backward 48
-                 launches a step, K1 none; then every leaf's gradient with
+                 launches a step, K1 none; K3 backward's share of the
+                 profiled step's device time; then every leaf's gradient with
                  the K3 route against use_kernel=False at depth 2 (fp32
                  and bf16);
 15. the {"kernels": [...]} line, then the contract's last line.
@@ -155,8 +157,10 @@ K1_BWD_NAMES = ("flash_bwd_dot_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_k
                 *fab.PARTS)
 K3_FWD_NAMES = ("ssd_kernel", "ssd_chunk_cb_kernel", "ssd_chunk_state_kernel",
                 "ssd_chunk_scan_kernel")
-K3_BWD_NAMES = tuple(ssdb.PARTS)
+K3_BWD_NAMES = ssdb.KERNELS
 K3_PASS_NAME = "ssd_state_pass_kernel"  # launched by K3's forward and its backward
+# K3's forward kernels that its bf16 backward launches too, once a call each
+K3_SHARED_NAMES = ("ssd_chunk_cb_kernel", "ssd_chunk_state_kernel")
 PORT_KERNEL_NAMES = (*K1_FWD_NAMES, *K1_BWD_NAMES, "decode_split_kernel",
                      "decode_combine_kernel", *K3_FWD_NAMES, K3_PASS_NAME, *K3_BWD_NAMES)
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound's rates
@@ -164,6 +168,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py (attention)
 SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}  # tests/test_kernels.py (SSD)
+# K3's bf16 backward against ref.ssd_scan_bwd_bf16 (its own roundings; a bf16
+# output may round the other way): tests/test_torch_cuda.py's bound
+SSD_BWD_SAME_ROUNDING_TOL = 1e-2
 REF_SHAPES = [  # tests/test_kernels.py sweep: B, Sq, Sk, Hq, Hkv, Dh, causal
     (2, 128, 128, 4, 2, 64, True),
     (1, 256, 256, 8, 2, 32, True),
@@ -644,9 +651,10 @@ def ssd_bwd_args(shape, dtype, with_init, with_dfinal, seed=0):
 
 
 def ssd_bwd_case(args, chunk, dtype, **tags):
-    """K3's backward kernel against ref.ssd_scan_bwd on ``args`` and against
-    a second call, bit for bit; returns (the case's record, its worst
-    |err|)."""
+    """K3's backward kernel against ref.ssd_scan_bwd on ``args``, bf16 also
+    against ref.ssd_scan_bwd_bf16 (its own roundings), and against a second
+    call, bit for bit; returns (the case's record, its worst |err| against
+    ref.ssd_scan_bwd)."""
     got = ssdb.ssd_scan_bwd(*args, chunk=chunk)
     torch.cuda.synchronize()
     want = ref.ssd_scan_bwd(*args, chunk=chunk)
@@ -658,9 +666,16 @@ def ssd_bwd_case(args, chunk, dtype, **tags):
         errs.append(err)
         rels.append(err / max(m, 1e-30))
         ok = ok and err <= SSD_TOL[dtype] * m and bool(torch.isfinite(g.float()).all().item())
+    same = {}
+    if dtype == torch.bfloat16:
+        for g, w in zip(got, ref.ssd_scan_bwd_bf16(*args, chunk=chunk)):
+            err = (g.float() - w.float()).abs().max().item()
+            m = w.float().abs().max().item()
+            same.setdefault("rel_err_vs_own_roundings", []).append(err / max(m, 1e-30))
+            ok = ok and err <= SSD_BWD_SAME_ROUNDING_TOL * m
     bits = all(torch.equal(a, b) for a, b in zip(got, again))
     case = {**tags, "dtype": str(dtype).split(".")[1], "max_abs_err": errs,
-            "rel_err": rels, "bit_equal_second_call": bits, "ok": ok and bits}
+            "rel_err": rels, **same, "bit_equal_second_call": bits, "ok": ok and bits}
     check(case["ok"], f"ssd_scan_bwd disagrees: {case}")
     return case, max(errs)
 
@@ -670,9 +685,10 @@ def phase_kernels_ssd_bwd():
     the SSD sweep, the edges and the reduced shape, fp32 and bf16, with and
     without an initial state and a final state's gradient; strided views of
     one fused tensor; the training shape (bf16); each bit for bit against
-    a second call. Then device time at the training shape (no initial
-    state, no final state's gradient: the train step's case), the whole
-    and each of its five launches alone."""
+    a second call, bf16 also against the plain version of its own
+    roundings (ref.ssd_scan_bwd_bf16). Then device time at the training
+    shape (no initial state, no final state's gradient: the train step's
+    case), the whole and each of its launches alone (``ssdb.PARTS``)."""
     results, worst, t0 = [], 0.0, time.monotonic()
     for shape in (*SSD_REF_SHAPES, *SSD_EDGE_SHAPES, SSD_REDUCED_SHAPE):
         for dtype in (torch.float32, torch.bfloat16):
@@ -701,7 +717,8 @@ def phase_kernels_ssd_bwd():
     worst = max(worst, err)
     emit({"phase": "kernels", "kernel": ssdb.NAME, "cases": results,
           "tol": "1e-3 * max|g| fp32, 3e-2 * max|g| bf16, per gradient (the SSD tolerances "
-          "of tests/test_kernels.py), and bit-equal across two calls",
+          "of tests/test_kernels.py); bf16 also 1e-2 * max|g| of ref.ssd_scan_bwd_bf16; and "
+          "bit-equal across two calls",
           "seconds": time.monotonic() - t0})
     t0 = time.monotonic()
 
@@ -710,18 +727,18 @@ def phase_kernels_ssd_bwd():
     kern = lambda: ssdb.ssd_scan_bwd(*args, chunk=chunk)  # noqa: E731
     plain = lambda: ref.ssd_scan_bwd(*args, chunk=chunk)  # noqa: E731
     # each launch alone, on one call's buffers (the first calls below run
-    # the five in order, so each reads what the ones before it wrote)
+    # them in order, so each reads what the ones before it wrote)
     bufs = ssdb.new_buffers(x, Bm, chunk)
-
-    def launch(bit):
-        return lambda: ssdb.launch_parts(bit, x, dt, A, Bm, Cm, dy, bufs, chunk=chunk)
-
-    parts = {"ssd_bwd_chunk_kernel": launch(1),
-             "ssd_state_pass_kernel (states)": lambda: ssd.pass_states(
-                 bufs["states"], bufs["decay"], None, bufs["fs"]),
-             "ssd_state_pass_kernel (gradients, reversed)": lambda: ssd.pass_states(
-                 bufs["adj"], bufs["decay_rev"], None, bufs["dinit"]),
-             "ssd_bwd_grad_kernel": launch(2), "ssd_bwd_reduce_kernel": launch(4)}
+    parts = {}
+    for name in ssdb.PARTS[dtype]:
+        if name == ssdb.PASS:
+            parts[f"{name} (states)"] = lambda: ssd.pass_states(
+                bufs["states"], bufs["decay"], None, bufs["fs"])
+            parts[f"{name} (gradients, reversed)"] = lambda: ssd.pass_states(
+                bufs["adj"], bufs["decay_rev"], None, bufs["dinit"])
+        else:
+            parts[name] = functools.partial(ssdb.launch_parts, name, x, dt, A, Bm, Cm, dy, bufs,
+                                            chunk=chunk)
     for fn in (kern, plain, *parts.values()):
         fn()
     torch.cuda.synchronize()
@@ -734,7 +751,8 @@ def phase_kernels_ssd_bwd():
           "dtype": "bfloat16", **timing, "bound_ms": bound_ms, "bound_by": bound_by,
           "flops": flops, "bytes": nbytes, "scratch_bytes": sum(
               t.numel() * t.element_size() for k, t in bufs.items()
-              if k in ("states", "adj", "decay", "decay_rev", "dBp", "dCp", "dAp", "fs")),
+              if k in ("cb", "states", "adj", "decay", "decay_rev", "dBp", "dCp", "dAp", "fs")),
+          "heads_per_block": x.shape[2] // bufs["dBp"].shape[0],
           "library": "none: no single PyTorch call computes the SSD scan's backward, and "
           "autograd of the plain version is that version again",
           "tflops": flops / timing["ms"] / 1e9, "seconds": time.monotonic() - t0})
@@ -1461,18 +1479,25 @@ def step_breakdown(cfg, state, batch):
     (``_value_and_grad``) profiled, split by kernel name into K1 forward,
     K1 backward, K3 forward, K3 backward, K3's state pass (which both
     launch), GEMMs and the rest (elementwise, reductions, copies), then the
-    AdamW update profiled alone."""
+    AdamW update profiled alone. K3's C B^T and chunk-state kernels run once
+    in each forward call and once in each bf16 backward call, at the same
+    shapes, so their time is split between the two by calls; the state
+    pass runs once in a forward and twice in a backward, which gives K3
+    backward's share of the device time with its passes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     parts = dict.fromkeys(("k1_forward", "k1_backward", "k3_forward", "k3_backward",
                            "k3_state_pass", "gemm", "elementwise_other", "optimizer"), 0.0)
+    shared = 0.0
     torch.cuda.synchronize()
+    calls = (ssd.launches, ssdb.launches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         metrics, grads = _value_and_grad(cfg, state["params"], batch)
         torch.cuda.synchronize()
         fb_wall = time.monotonic() - t0
+    n_fwd, n_bwd = ssd.launches - calls[0], ssdb.launches - calls[1]
     events = [e for e in prof.key_averages()  # one pass over the trace: it is long
               if e.device_type == DeviceType.CUDA]
     for e in events:
@@ -1486,6 +1511,8 @@ def step_breakdown(cfg, state, batch):
             parts["k1_backward"] += t
         elif any(tag in e.key for tag in K3_BWD_NAMES):
             parts["k3_backward"] += t
+        elif any(tag in e.key for tag in K3_SHARED_NAMES) and n_bwd:
+            shared += t
         elif K3_PASS_NAME in e.key:
             parts["k3_state_pass"] += t
         elif any(tag in e.key for tag in K3_FWD_NAMES):
@@ -1498,8 +1525,16 @@ def step_breakdown(cfg, state, batch):
     grads = T.unflatten(state["params"], grads)
     _, opt_prof = profiled(lambda: adamw_update(TRAIN_OPT, grads, state["opt"], state["params"]))
     parts["optimizer"] = opt_prof["device_busy_ms"]
+    if n_bwd:
+        parts["k3_forward"] += shared * n_fwd / (n_fwd + n_bwd)
+        parts["k3_backward"] += shared * n_bwd / (n_fwd + n_bwd)
+    k3_bwd_all = parts["k3_backward"] + (
+        parts["k3_state_pass"] * 2 * n_bwd / (n_fwd + 2 * n_bwd) if n_bwd else 0.0)
+    busy = sum(parts.values())
     del grads
-    return {"device_ms": parts, "device_busy_ms": sum(parts.values()),
+    return {"device_ms": parts, "device_busy_ms": busy, "k3_calls": [n_fwd, n_bwd],
+            "k3_backward_with_passes_ms": k3_bwd_all,
+            "k3_backward_share_of_device": k3_bwd_all / busy if busy else 0.0,
             "forward_backward_wall_ms": fb_wall * 1e3,
             "optimizer_wall_ms": opt_prof["profiled_wall_ms"],
             "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top],

@@ -66,6 +66,7 @@
 #include <stdint.h>
 
 #include "ptx.cuh"
+#include "ssd_tc.cuh"
 
 namespace {
 
@@ -373,20 +374,17 @@ cudaError_t launch(const void* x, const float* dt, const float* A, const void* B
 // bf16: four kernels on the tensor cores
 namespace tc {
 
-using bf16 = __nv_bfloat16;
+using ssd_tc::bf16;
+using ssd_tc::chunk_cumsum;
+using ssd_tc::ld_of;
+using ssd_tc::split_bf16;
+using ssd_tc::stage_rows;
+using ssd_tc::tile_bytes;
+
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxDim = 128;   // P, N and the chunk: at most this
 constexpr int kPassThreads = 256;
-
-// Row stride, in elements, of a [rows][D] bf16 tile in shared memory: 16
-// bytes of padding per row. With D a multiple of 16, eight consecutive rows
-// start in eight distinct 16-byte bank groups, so ldmatrix is conflict-free.
-__host__ __device__ constexpr int ld_of(int D) { return D + 8; }
-
-__host__ __device__ constexpr size_t tile_bytes(int rows, int D) {
-  return sizeof(bf16) * static_cast<size_t>(rows) * ld_of(D);
-}
 
 // Shared memory of each kernel (Tp = the chunk rounded up to 16).
 __host__ __device__ constexpr size_t cb_smem(int Tp, int N) { return 2 * tile_bytes(Tp, N); }
@@ -396,52 +394,6 @@ __host__ __device__ constexpr size_t state_smem(int Tp, int P, int N) {
 __host__ __device__ constexpr size_t scan_smem(int Tp, int P, int N) {
   return tile_bytes(Tp, N) + tile_bytes(Tp, P) + 2 * tile_bytes(P, N) +
          sizeof(float) * (2 * Tp + kWarps);
-}
-
-// Rows [0, Tp) of a [rows][D] bf16 matrix whose rows are rs elements apart
-// into a shared [Tp][ld_of(D)] tile, 16 bytes per cp.async; rows >= Tc are
-// zero. The caller commits and waits.
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int64_t rs, int Tc,
-                                           int Tp, int D) {
-  const int cpr = D / 8;  // 16-byte chunks per row
-  const int ld = ld_of(D);
-  for (int idx = threadIdx.x; idx < Tp * cpr; idx += kThreads) {
-    const int r = idx / cpr, c = idx % cpr;
-    const bool ok = r < Tc;
-    ptx::cp_async_16(dst + r * ld + c * 8, src + (ok ? r * rs + c * 8 : 0), ok);
-  }
-}
-
-// dt of the chunk (rows >= Tc zero) into sDt and cs = inclusive cumsum of
-// dt * A into sCs, for Tp <= kThreads rows: a scan within each warp, then
-// the totals of the warps before. dt_col points at the chunk's first dt of
-// this head; dt's rows are H apart. The caller syncs before reading.
-__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ dt_col, int H, float Ah,
-                                             int Tc, int Tp, float* sDt, float* sCs,
-                                             float* sWarp) {
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const float d = t < Tc ? dt_col[static_cast<int64_t>(t) * H] : 0.f;
-  float v = __fmul_rn(d, Ah);
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float u = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += u;
-  }
-  if (lane == 31) sWarp[warp] = v;
-  __syncthreads();
-  for (int w = 0; w < warp; ++w) v += sWarp[w];
-  if (t < Tp) {
-    sDt[t] = d;
-    sCs[t] = v;
-  }
-}
-
-// Two fp32 values as bf16 high parts (hi) and the bf16 rounding of what
-// they leave (lo), each pair packed as an mma operand register.
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = ptx::pack_bf16(a - __low2float(h), b - __high2float(h));
 }
 
 // ---- 1. CB[b, c] = C_c B_c^T, (Tp x Tp) fp32, the 16 x 16 blocks on or
@@ -459,8 +411,8 @@ ssd_chunk_cb_kernel(const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
   const int64_t row0 = static_cast<int64_t>(b) * S + c0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  stage_rows(sC, Cm + row0 * c_rs, c_rs, Tc, Tp, N);
-  stage_rows(sB, Bm + row0 * b_rs, b_rs, Tc, Tp, N);
+  stage_rows<kThreads>(sC, Cm + row0 * c_rs, c_rs, Tc, Tp, N);
+  stage_rows<kThreads>(sB, Bm + row0 * b_rs, b_rs, Tc, Tp, N);
   ptx::cp_async_commit();
   ptx::cp_async_wait<0>();
   __syncthreads();
@@ -514,8 +466,8 @@ ssd_chunk_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const int64_t row0 = static_cast<int64_t>(b) * S + c0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  stage_rows(sX, x + row0 * x_rs + h * P, x_rs, Tc, Tp, P);
-  stage_rows(sBh, Bm + row0 * b_rs, b_rs, Tc, Tp, N);  // raw B, scaled in place below
+  stage_rows<kThreads>(sX, x + row0 * x_rs + h * P, x_rs, Tc, Tp, P);
+  stage_rows<kThreads>(sBh, Bm + row0 * b_rs, b_rs, Tc, Tp, N);  // raw B, scaled in place below
   ptx::cp_async_commit();
   chunk_cumsum(dt + row0 * H + h, H, A[h], Tc, Tp, sDt, sCs, sWarp);
   __syncthreads();
@@ -635,8 +587,8 @@ ssd_chunk_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const int64_t row0 = static_cast<int64_t>(b) * S + c0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  stage_rows(sC, Cm + row0 * c_rs, c_rs, Tc, Tp, N);
-  stage_rows(sX, x + row0 * x_rs + h * P, x_rs, Tc, Tp, P);
+  stage_rows<kThreads>(sC, Cm + row0 * c_rs, c_rs, Tc, Tp, N);
+  stage_rows<kThreads>(sX, x + row0 * x_rs + h * P, x_rs, Tc, Tp, P);
   ptx::cp_async_commit();
   chunk_cumsum(dt + row0 * H + h, H, A[h], Tc, Tp, sDt, sCs, sWarp);
   // the entering state [p][n] as hi + lo bf16

@@ -507,3 +507,92 @@ def ssd_scan_bf16_split(x, dt, A, Bm, Cm, *, chunk: int = 128, initial_state=Non
     y_diag = torch.einsum("bchls,bcshp->bclhp", _bf16_operand(M, split), xc)
     y = (y_off + y_diag).reshape(Bsz, -1, H, P)[:, :S]
     return y.to(x.dtype), final
+
+
+#: the fp32 operands that K3's bf16 backward kernels give the tensor cores:
+#: the weighted rows of the chunk-state sum (dt w B) and of the adjoint sum
+#: (exp(cs) C), M1 = (C B^T) o E, M2 = E o (dy u^T), the gradient of the
+#: state leaving each chunk (Ŝ) and the state entering it (S_in)
+BWD_BF16_OPERANDS = ("state", "adjoint", "m1", "m2", "s_hat", "s_in")
+#: the operands that the kernels round to bf16 once; the others go in as
+#: hi + lo
+BWD_BF16_ONCE = ("s_hat", "s_in")
+
+
+def ssd_scan_bwd_bf16(x, dt, A, Bm, Cm, initial_state, dy, dfinal_state, *,
+                      chunk: int = 128, once=BWD_BF16_ONCE):
+    """``ssd_scan_bwd`` with exactly the operand roundings of the bf16
+    backward kernels (csrc/ssd_scan_bwd.cu): x, B, C and dy go in as they
+    are (bf16 already; rounded here if they are not); every operand named
+    in ``BWD_BF16_OPERANDS`` is fp32 and goes in as a bf16 high part plus
+    a bf16 low part, or rounded once if it is in ``once`` (by default
+    ``BWD_BF16_ONCE``, the kernels' choice). Scalings that
+    factor out of a sum are applied in fp32 after it: <dy_l, u_s> =
+    dt_s <dy_l, x_s>, exp(cs_l) S_in^T dy_l, w_s dt_s Ŝ^T x_s and w_s Ŝ B_s.
+    Sums, the passes over chunks and the decay's gradient stay fp32; dx,
+    dB and dC are rounded to bf16 at the end. Only the tests and
+    ``chip_smoke.py`` use it."""
+    unknown = set(once) - set(BWD_BF16_OPERANDS)
+    if unknown:
+        raise ValueError(f"unknown operands {sorted(unknown)}; "
+                         f"the kernels' are {BWD_BF16_OPERANDS}")
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    T = min(chunk, S)
+    f32, bf16 = torch.float32, torch.bfloat16
+    R = {name: (lambda v, split=name not in once: _bf16_operand(v, split))
+         for name in BWD_BF16_OPERANDS}
+    x, Bm, Cm, dy = (t.to(bf16) for t in (x, Bm, Cm, dy))
+    xc, dtc, dyc = _chunked(x, T), _chunked(dt, T), _chunked(dy, T)  # (B,c,l,H[,P])
+    Bc, Cc = _chunked(Bm, T), _chunked(Cm, T)     # (B,c,l,N)
+    _, cs = _chunk_cumsum(dt, A, T)               # (B,c,l,H)
+    nc = cs.shape[1]
+    e_cs = torch.exp(cs)
+    w = torch.exp(cs[:, :, -1:] - cs)
+    decay = torch.exp(cs[:, :, -1])               # (B,c,H)
+
+    # the chunk states x^T R(dt w B) and the adjoints dy^T R(exp(cs) C)
+    states = torch.einsum("bclhp,bclhn->bchpn", xc,
+                          R["state"]((dtc * w)[..., None] * Bc[:, :, :, None, :]))
+    s_in, _ = ssd_state_pass(states, decay, initial_state)
+    adj = torch.einsum("bclhp,bclhn->bchpn", dyc,
+                       R["adjoint"](e_cs[..., None] * Cc[:, :, :, None, :]))
+    s = (dfinal_state.to(f32) if dfinal_state is not None
+         else torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device))
+    hat = [None] * nc
+    for c in reversed(range(nc)):
+        hat[c] = s
+        s = s * decay[:, c, :, None, None] + adj[:, c]
+    hat, dinit = torch.stack(hat, dim=1), s      # (B,c,H,P,N), (B,H,P,N)
+
+    csh = cs.permute(0, 1, 3, 2)                  # (B,c,H,l)
+    ii = torch.arange(T, device=x.device)
+    E = torch.where(ii[:, None] >= ii[None, :],
+                    torch.exp(csh[..., :, None] - csh[..., None, :]), 0.0)  # (B,c,H,l,s)
+    dts = dtc.permute(0, 1, 3, 2)[..., None, :]   # dt_s (B,c,H,1,s)
+    cb = torch.einsum("bcln,bcsn->bcls", Cc, Bc)
+    dyx = torch.einsum("bclhp,bcshp->bchls", dyc, xc)  # exact products, fp32 sums
+    M1 = cb[:, :, None] * E
+    M2 = E * dts * dyx
+    sb = w[..., None] * torch.einsum("bchpn,bcsn->bcshp", R["s_hat"](hat), Bc)
+    du = torch.einsum("bchls,bclhp->bcshp", R["m1"](M1), dyc) + sb
+    dC_state = e_cs[..., None] * torch.einsum("bclhp,bchpn->bclhn", dyc, R["s_in"](s_in))
+    dC = dC_state.sum(3) + torch.einsum("bchls,bcsn->bcln", R["m2"](M2), Bc)
+    dB_state = (w * dtc)[..., None] * torch.einsum("bcshp,bchpn->bcshn", xc, R["s_hat"](hat))
+    dB = torch.einsum("bchls,bcln->bcsn", R["m2"](M2), Cc) + dB_state.sum(3)
+
+    W = M1 * dts * dyx                            # (B,c,H,l,s), fp32
+    V = dtc * (xc * sb).sum(-1)                   # (B,c,s,H)
+    dcs = (W.sum(-1) - W.sum(-2)).permute(0, 1, 3, 2)
+    dcs = dcs + torch.einsum("bclhn,bcln->bclh", dC_state, Cc) - V
+    last = decay * (hat * s_in).sum((-2, -1)) + V.sum(2)  # (B,c,H)
+    dcs = torch.cat([dcs[:, :, :-1], dcs[:, :, -1:] + last[:, :, None]], dim=2)
+    da = torch.flip(torch.cumsum(torch.flip(dcs, (2,)), dim=2), (2,))
+    ddt = (du * xc).sum(-1) + A.to(f32) * da
+    dA = (dtc * da).sum((0, 1, 2))
+
+    def unchunk(t):
+        return t.reshape(Bsz, nc * T, *t.shape[3:])[:, :S]
+
+    dx = unchunk(du * dtc[..., None])
+    return (dx.to(bf16), unchunk(ddt), dA, unchunk(dB).to(bf16), unchunk(dC).to(bf16), dinit)

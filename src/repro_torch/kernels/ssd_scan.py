@@ -37,9 +37,11 @@ stream and nothing synchronises. ``launches`` counts one per call of
 
 Under grad mode, an input that requires grad sends the call through
 ``SSDScan``, an autograd Function whose backward is the hand-written
-kernel of ``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``); it saves only the
-inputs. ``pass_states`` launches the state pass alone, in place, for any
-P and N: the backward runs it forwards and on reversed chunks.
+kernels of ``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``: fp32 FMA for fp32,
+the tensor cores for bf16); it saves only the inputs. The bf16 backward
+launches this file's C B^T and chunk-state kernels too (``launch_bf16``),
+and both routes the state pass, which ``pass_states`` launches alone, in
+place, for any P and N: forwards, and on reversed chunks.
 """
 from __future__ import annotations
 
@@ -233,7 +235,7 @@ def _checked(x, dt, A, Bm, Cm, initial_state, chunk: int):
 
 class SSDScan(torch.autograd.Function):
     """K3 with a gradient: the forward kernels, and the hand-written
-    backward kernel (``ssd_scan_bwd``), which recomputes the chunk states
+    backward kernels (``ssd_scan_bwd``), which recompute the chunk states
     from the saved inputs. Both raise ValueError for what they do not take
     (a CPU tensor, a chunk above ``ssd_scan_bwd.MAX_CHUNK``) before
     anything runs."""
@@ -278,7 +280,7 @@ def ssd_scan(
 
     Differentiable when a gradient is being taken: an input that requires
     grad sends the call through ``SSDScan``, whose backward is the
-    hand-written kernel of ``ssd_scan_bwd`` (chunk at most 128)."""
+    hand-written kernels of ``ssd_scan_bwd`` (chunk at most 128)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, initial_state)):
         return SSDScan.apply(x, dt, A, Bm, Cm, initial_state, chunk)

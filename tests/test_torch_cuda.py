@@ -757,23 +757,42 @@ def test_ssd_backward_kernel_reads_strided_views_and_is_deterministic(cuda, dtyp
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_backward_parts_compose(cuda, dtype):
-    """The three kernels and the two state passes launched one at a time
-    (as chip_smoke.py times them) give the whole call's bits; buffers of
-    another shape are refused."""
+    """Each route's kernels and its two state passes launched one at a time
+    (``launch_parts`` over ``PARTS``, as chip_smoke.py times them) give the
+    whole call's bits; buffers of another shape, and a kernel of the other
+    route, are refused."""
     B, S, H, P, N, chunk = 2, 100, 3, 16, 32, 32
     x, dt, A, Bm, Cm, _, dy, _ = _ssd_bwd_args(cuda, dtype, B, S, H, P, N, with_init=False)
     whole = ssd_bwd.ssd_scan_bwd(x, dt, A, Bm, Cm, None, dy, None, chunk=chunk)
     bufs = ssd_bwd.new_buffers(x, Bm, chunk)
-    ssd_bwd.launch_parts(1, x, dt, A, Bm, Cm, dy, bufs, chunk=chunk)
-    ssd.pass_states(bufs["states"], bufs["decay"], None, bufs["fs"])
-    ssd.pass_states(bufs["adj"], bufs["decay_rev"], None, bufs["dinit"])
-    ssd_bwd.launch_parts(2, x, dt, A, Bm, Cm, dy, bufs, chunk=chunk)
-    ssd_bwd.launch_parts(4, x, dt, A, Bm, Cm, dy, bufs, chunk=chunk)
+    for name in ssd_bwd.PARTS[x.dtype]:
+        ssd_bwd.launch_parts(name, x, dt, A, Bm, Cm, dy, bufs, chunk=chunk)
     parts = [bufs[k] for k in ("dx", "ddt", "dA", "dB", "dC", "dinit")]
     assert all(torch.equal(a, b) for a, b in zip(whole, parts))
+    other = next(n for r in ssd_bwd.PARTS.values() for n in r if n not in ssd_bwd.PARTS[x.dtype])
+    with pytest.raises(ValueError, match="not a part"):
+        ssd_bwd.launch_parts(other, x, dt, A, Bm, Cm, dy, bufs, chunk=chunk)
     bufs["dBp"] = bufs["dBp"][:1]
     with pytest.raises(ValueError, match="dBp"):
-        ssd_bwd.launch_parts(4, x, dt, A, Bm, Cm, dy, bufs, chunk=chunk)
+        ssd_bwd.launch_parts("ssd_bwd_reduce_kernel", x, dt, A, Bm, Cm, dy, bufs, chunk=chunk)
+
+
+#: the bf16 kernels against ref.ssd_scan_bwd_bf16 (the same operand
+#: roundings; the sums run in another order, so a bf16 output may round the
+#: other way, 2**-8 of the largest at most): SSD_BWD_SAME_ROUNDING_TOL * max|g|
+SSD_BWD_SAME_ROUNDING_TOL = 1e-2
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("with_init", [False, True])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_BWD_SHAPES)
+def test_ssd_backward_bf16_kernel_matches_its_roundings(cuda, with_init, B, S, H, P, N, chunk):
+    """The bf16 route against ``ref.ssd_scan_bwd_bf16`` on the same inputs:
+    the same roundings, so a tighter bound than the 3e-2 against the fp32
+    backward."""
+    args = _ssd_bwd_args(cuda, "bfloat16", B, S, H, P, N, with_init)
+    got = ssd_bwd.ssd_scan_bwd(*args, chunk=chunk)
+    _close_grads(got, ref.ssd_scan_bwd_bf16(*args, chunk=chunk), SSD_BWD_SAME_ROUNDING_TOL)
 
 
 @pytest.mark.requires_cuda
