@@ -90,7 +90,27 @@ Phases, one JSON line each:
                  profiled step's device time; then every leaf's gradient with
                  the K3 route against use_kernel=False at depth 2 (fp32
                  and bf16);
-15. the {"kernels": [...]} line, then the contract's last line.
+15. serve        launch/serve.py's serve() on the card for FixedGSL and SAGE
+                 (the reduced qwen2.5-3b, 16 Poisson requests at rate 8):
+                 every request served, K1 launched, no declared or real
+                 device bytes left after shutdown; mean and p99 e2e, warm
+                 share and shared hits of each;
+16. serve_workload  examples/torch_serve_workload.py's drive() for FixedGSL
+                 and SAGE, 12 requests at rate 12 over the reduced
+                 qwen2.5-3b, qwen3-8b and mamba2-780m (K1 and K3);
+17. exit_ladder  the multi-stage exit ladder on real device memory: the
+                 full-width qwen2.5-3b through SageRuntime, one cold request,
+                 then at each of stages 1-4 the declared and the real memory
+                 and one hit (its warm stage, e2e, gpu_ctx, gpu_data): the
+                 weights leave the card at stage 2, the context at stage 3,
+                 and each hit skips what Table 4 says it skips;
+18. analysis     analysis.op_analysis on qwen2.5-3b: the kernels' reports
+                 against use_kernel=False at depth 2, then the full-width
+                 prefill, decode step and train step with their roofline
+                 terms beside their device time;
+19. the {"kernels": [...]} line, then the contract's last line.
+
+(Phases 15-17 run after 8, phase 18 after 14.)
 
 Each served path sets every kernel's launch count to 0 just before it runs
 and reads the counts just after. Any failed check exits non-zero before the
@@ -99,6 +119,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -124,6 +145,11 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 
 from repro_torch import tree as T  # noqa: E402
+from repro_torch.analysis.op_analysis import analyze_step  # noqa: E402
+from repro_torch.analysis.roofline import (  # noqa: E402
+    PEAK_FLOPS, attention_bound_ms, attention_bwd_bound_ms, decode_bound_ms, model_flops,
+    roofline_from_report, ssd_bound_ms, ssd_bwd_bound_ms, train_step_flops,
+)
 from repro_torch.api import FunctionSpec, Gateway, TraceWorkload  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core import SageRuntime  # noqa: E402
@@ -163,9 +189,6 @@ K3_PASS_NAME = "ssd_state_pass_kernel"  # launched by K3's forward and its backw
 K3_SHARED_NAMES = ("ssd_chunk_cb_kernel", "ssd_chunk_state_kernel")
 PORT_KERNEL_NAMES = (*K1_FWD_NAMES, *K1_BWD_NAMES, "decode_split_kernel",
                      "decode_combine_kernel", *K3_FWD_NAMES, K3_PASS_NAME, *K3_BWD_NAMES)
-# H100 SXM published peaks (NVIDIA data sheet, dense): the bound's rates
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py (attention)
 SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}  # tests/test_kernels.py (SSD)
 # K3's bf16 backward against ref.ssd_scan_bwd_bf16 (its own roundings; a bf16
@@ -352,78 +375,6 @@ def enqueue_ms(fn, calls=20) -> float:
     host_ms = (time.perf_counter() - t0) * 1e3 / calls
     torch.cuda.synchronize()
     return host_ms
-
-
-def bound(flops, nbytes, dtype):
-    """Least time for the work: max(operations / peak, bytes / bandwidth)."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def attention_bound_ms(shape, dtype):
-    """Operations: 2 matmuls x 2 flops per (query, visible key) pair per head
-    dim; with the causal mask only keys k <= q are visible. Bytes: q, k, v
-    read once and o written once."""
-    B, Sq, Sk, Hq, Hkv, Dh, causal = shape
-    pairs = sum(min(Sk, qp + 1) for qp in range(Sq)) if causal else Sq * Sk
-    flops = 4.0 * B * Hq * Dh * pairs
-    nbytes = (2 * B * Sq * Hq * Dh + 2 * B * Sk * Hkv * Dh) * torch.finfo(dtype).bits / 8
-    return (*bound(flops, nbytes, dtype), flops, nbytes)
-
-
-def decode_bound_ms(shape, lengths, dtype):
-    """As ``attention_bound_ms`` for one query per sequence, counted up to
-    this run's lengths: 4 flops per (query head, cache position, head dim);
-    bytes: q read, K and V up to each length read, o written."""
-    B, L, Hq, Hkv, Dh = shape
-    visible = float(sum(lengths))
-    flops = 4.0 * Hq * Dh * visible
-    nbytes = (2 * B * Hq * Dh + 2 * Hkv * Dh * visible) * torch.finfo(dtype).bits / 8
-    return (*bound(flops, nbytes, dtype), flops, nbytes)
-
-
-def ssd_chunk_lengths(S, T):
-    """The chunks' lengths: T each, the last one ragged."""
-    return [min(T, S - c) for c in range(0, S, T)]
-
-
-def ssd_bound_ms(shape, dtype):
-    """Operations the function needs, with the causal mask's pairs s <= l
-    of each chunk of length t (t (t + 1) / 2 of them): C B^T once per
-    (sequence, chunk), since it does not depend on the head (2 pairs N);
-    per (sequence, chunk, head) the masked product with x*dt (2 pairs P),
-    C times the entering state (2 t N P) and the state update (2 t P N).
-    Bytes: x, dt, B, C read once, y and the fp32 final state written once."""
-    B, S, H, P, N, T = shape
-    flops = 0.0
-    for t in ssd_chunk_lengths(S, T):
-        pairs = t * (t + 1) / 2
-        flops += 2.0 * B * (pairs * N + H * (pairs * P + 2 * t * N * P))
-    elt = torch.finfo(dtype).bits / 8
-    nbytes = elt * (2 * B * S * H * P + 2 * B * S * N) + 4 * (B * S * H + H + B * H * P * N)
-    return (*bound(flops, nbytes, dtype), flops, nbytes)
-
-
-def ssd_bwd_bound_ms(shape, dtype):
-    """Operations the backward needs, counted as ``ssd_bound_ms`` counts the
-    forward's: C B^T once per (sequence, chunk) (2 pairs N); per (sequence,
-    chunk, head) the causal products dy u^T and du's sum over l >= s (each
-    2 pairs P), dC's sum over s <= l and dB's over l >= s (each 2 pairs N),
-    and five (P, N) state products of 2 t P N each: the chunk's local
-    state, its adjoint, S-hat B (for du and the decay's gradient), S_in^T
-    dy (for dC and the decay's gradient) and S-hat^T u (for dB). Bytes, for
-    a call without an initial state or a final state's gradient (the train
-    step's): x, dt, A, B, C, dy read once; dx, ddt, dA, dB, dC and the
-    initial state's gradient written once."""
-    B, S, H, P, N, T = shape
-    flops = 0.0
-    for t in ssd_chunk_lengths(S, T):
-        pairs = t * (t + 1) / 2
-        flops += 2.0 * B * (pairs * N + H * (2 * pairs * (P + N) + 5 * t * P * N))
-    elt = torch.finfo(dtype).bits / 8
-    nbytes = (elt * (3 * B * S * H * P + 4 * B * S * N) + 4 * 2 * (B * S * H + H)
-              + 4 * B * H * P * N)
-    return (*bound(flops, nbytes, dtype), flops, nbytes)
 
 
 def phase_card():
@@ -761,14 +712,14 @@ def phase_kernels_ssd_bwd():
             "shape": list(SSD_FULL_SHAPE)}
 
 
-def drain(rt) -> dict:
-    deadline = time.monotonic() + 60
-    while not rt.is_idle() and time.monotonic() < deadline:
-        time.sleep(0.01)
-    rt.drain_teardown()
-    usage = rt.memory_usage()
-    rt.shutdown()
-    return usage
+def freed_memory() -> tuple:
+    """Device bytes allocated after a collection, before and after the
+    per-thread cuBLAS workspaces are cleared (each thread that ran a cuBLAS
+    call keeps one for the life of the process; those are not the port's)."""
+    gc.collect()
+    raw = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    return raw, torch.cuda.memory_allocated()
 
 
 def record(r) -> dict:
@@ -804,7 +755,8 @@ def phase_reduced(phase, arch):
     recs = rt.telemetry.records
     warm = [r.warm_stage for r in recs]
     stats = dict(rt.daemon.stats)
-    usage = drain(rt)
+    usage = rt.drain()
+    rt.shutdown()
 
     cfg = ARCHS[arch].reduced()
     weights = rt.db.fetch("f/weights")  # the host copy
@@ -872,14 +824,10 @@ def phase_full(phase, arch, fn_name):
         direct = forward(cfg, weights, {"tokens": toks})[0][:, -1, :8].float().cpu().numpy()
     direct_err = float(np.abs(served[0] - direct).max())
     del weights, toks
-    usage = drain(rt)
+    usage = rt.drain()
+    rt.shutdown()
     del rt, fn, futs
-    gc.collect()
-    after_raw = torch.cuda.memory_allocated()
-    # every thread that ran a cuBLAS call keeps a workspace (32 MiB each on
-    # this card) for the life of the process; those are not the port's
-    torch._C._cuda_clearCublasWorkspaces()
-    after = torch.cuda.memory_allocated()
+    after_raw, after = freed_memory()
     want = forward_launches(cfg)
     emit({"phase": phase, "arch": cfg.name, "params": cfg.param_count(),
           "ro_bytes": ro_bytes, "batch": FULL_BATCH, "seq": FULL_SEQ,
@@ -952,10 +900,7 @@ def phase_gateway():
     sample = [float(x) for x in db.fetch(cold.result)[0]]
     hits, usage = res["shared_hits"], res["memory"]
     del weights, toks, db, res
-    gc.collect()
-    after_raw = torch.cuda.memory_allocated()
-    torch._C._cuda_clearCublasWorkspaces()  # per-thread cuBLAS workspaces
-    after = torch.cuda.memory_allocated()
+    after_raw, after = freed_memory()
     emit({"phase": "gateway", "check": "quickstart", "arch": cfg.name, "device": device,
           "time_scale": 0.2, "wall_s": wall_s,
           "cold_e2e_ms": ms(cold.e2e), "warm_e2e_ms": ms(warm.e2e),
@@ -1039,9 +984,220 @@ def phase_gateway():
     check(found, "the merged cluster view lost its lookup index")
     check(all(d.startswith("cuda") for d in devices), f"cluster nodes on {devices}")
     check(clu[fa.NAME] == 4 * layers, f"cluster launches {clu}")
-    gc.collect()
-    torch._C._cuda_clearCublasWorkspaces()
+    freed_memory()
     return sum(c[fa.NAME] for c in (qs, par, failing, clu))
+
+
+# ---------------------------------------------------------------------------
+# the serving launcher, the serving example and the exit ladder
+# ---------------------------------------------------------------------------
+
+SERVE_REQUESTS, SERVE_RATE = 16, 8.0
+SERVE_WORKLOAD_REQUESTS, SERVE_WORKLOAD_RATE = 12, 12.0
+# the modelled db and PCIe legs at 1/20 of their time (the launchers'
+# defaults are 0.2 and 0.05); the real copies and forwards are unscaled
+SERVE_TIME_SCALE = 0.05
+LADDER_TTL = 10.0          # seconds per exit stage on the engine's clock
+LADDER_SEEDS = {"cold": 0, 1: 1, 2: 0, 3: 3, 4: 4}  # the stage-2 hit repeats the cold input
+LADDER_SKIP_S = 5e-3       # a skipped setup stage: its measured time is below this
+
+
+def phase_serve():
+    """``launch/serve.py``'s ``serve`` on the card, as a user calls it: the
+    reduced qwen2.5-3b behind the gateway, 16 Poisson requests at rate 8,
+    for FixedGSL and for SAGE. Each run sets the counts to 0 just before
+    and reads them just after. Every request served, K1 launched once per
+    attention layer of each request and nothing else, and after shutdown
+    the gateway declares no device bytes and the card's allocated bytes are
+    back to their value before. Returns the launches over both runs."""
+    from repro_torch.launch.serve import serve
+
+    layers = ARCHS["qwen2.5-3b"].reduced().num_attn_layers
+    base_alloc = freed_memory()[1]
+    total, runs = dict.fromkeys(KERNELS, 0), {}
+    for system in ("fixedgsl", "sage"):
+        reset_counts()  # -- the serve path starts here
+        t0 = time.monotonic()
+        served = serve("qwen2.5-3b", system, requests=SERVE_REQUESTS, rate=SERVE_RATE,
+                       time_scale=SERVE_TIME_SCALE, device="cuda")
+        wall_s = time.monotonic() - t0
+        launches = counts()  # -- and ends here
+        after_raw, after = freed_memory()
+        tel, usage = served.telemetry, served.usage
+        runs[system] = {
+            "device": served.device, "wall_s": wall_s, "requests": len(tel.records),
+            "errors": tel.error_count(), "mean_e2e_ms": ms(tel.mean_e2e()),
+            "p99_e2e_ms": ms(tel.p99_e2e()), "warm_share": tel.warm_fraction(),
+            "shared_hits": served.stats["shared_hits"], "launches": launches,
+            "memory_usage_after_shutdown": usage,
+            "memory_allocated_after_shutdown": after_raw,
+            "memory_allocated_after_cublas_workspaces_cleared": after}
+        check(served.device.startswith("cuda"), f"serve {system}: the database is on "
+              f"{served.device}")
+        check(len(tel.records) == SERVE_REQUESTS and tel.error_count() == 0,
+              f"serve {system}: {len(tel.records)} records, {tel.error_count()} errors")
+        want = {**dict.fromkeys(KERNELS, 0), fa.NAME: SERVE_REQUESTS * layers}
+        check(launches == want, f"serve {system}: launches {launches} != {want}")
+        check(usage["device_used"] == 0, f"serve {system}: after shutdown {usage}")
+        check(after <= base_alloc, f"serve {system}: device memory not freed: "
+              f"{after} > {base_alloc} bytes")
+        for name, n in launches.items():
+            total[name] += n
+    emit({"phase": "serve", "arch": "qwen2.5-3b (reduced)", "requests": SERVE_REQUESTS,
+          "rate": SERVE_RATE, "time_scale": SERVE_TIME_SCALE, "runs": runs,
+          "memory_allocated_before": base_alloc,
+          "fixedgsl_over_sage_mean_e2e": runs["fixedgsl"]["mean_e2e_ms"]
+          / runs["sage"]["mean_e2e_ms"]})
+    return total
+
+
+def phase_serve_workload():
+    """examples/torch_serve_workload.py's ``drive`` on the card for FixedGSL
+    and SAGE, 12 Poisson requests at rate 12 over the reduced qwen2.5-3b,
+    qwen3-8b (K1) and mamba2-780m (K3). Every request served without error,
+    and each launched its function's kernels as ``forward_launches`` says,
+    and nothing else. Returns the launches over both."""
+    example = load_example("torch_serve_workload")
+    per_fn = {s.name: forward_launches(ARCHS[s.arch].reduced()) for s in example.SPECS}
+    total, runs = dict.fromkeys(KERNELS, 0), {}
+    for system in ("fixedgsl", "sage"):
+        reset_counts()  # -- the serve_workload path starts here
+        t0 = time.monotonic()
+        tel = example.drive(system, SERVE_WORKLOAD_REQUESTS, SERVE_WORKLOAD_RATE,
+                            device="cuda")
+        wall_s = time.monotonic() - t0
+        launches = counts()  # -- and ends here
+        runs[system] = {"requests": len(tel.records), "errors": tel.error_count(),
+                        "mean_e2e_ms": ms(tel.mean_e2e()), "p99_e2e_ms": ms(tel.p99_e2e()),
+                        "wall_s": wall_s, "launches": launches}
+        check(len(tel.records) == SERVE_WORKLOAD_REQUESTS and tel.error_count() == 0,
+              f"serve_workload {system}: {len(tel.records)} records, "
+              f"{tel.error_count()} errors")
+        want = {k: sum(per_fn[r.function][k] for r in tel.records) for k in KERNELS}
+        check(launches == want, f"serve_workload {system}: launches {launches} != {want}")
+        for name, n in launches.items():
+            total[name] += n
+    freed_memory()
+    emit({"phase": "serve_workload", "requests": SERVE_WORKLOAD_REQUESTS,
+          "rate": SERVE_WORKLOAD_RATE, "functions": [s.arch for s in example.SPECS],
+          "runs": runs, "fixedgsl_over_sage_mean_e2e":
+              runs["fixedgsl"]["mean_e2e_ms"] / runs["sage"]["mean_e2e_ms"]})
+    check(total[fa.NAME] > 0 and total[ssd.NAME] > 0,
+          f"serve_workload: K1 and K3 must both launch: {total}")
+    return total
+
+
+class PinnedClock:
+    """An engine's clock pinned at ``t`` (the exit ladder reads it); its
+    sleeps do not wait (the modelled container and CPU-context stages are
+    still recorded), as tests/test_runtime.py's clock does."""
+
+    def __init__(self, t):
+        self.t = t
+
+    def now(self):
+        return self.t
+
+    def sleep(self, dt):
+        pass
+
+
+def memory_now(rt) -> dict:
+    torch.cuda.synchronize()
+    gc.collect()
+    return {**rt.memory_usage(), "allocated": torch.cuda.memory_allocated()}
+
+
+def phase_exit_ladder():
+    """The multi-stage exit ladder (paper §6.3, Table 4) on real device
+    memory: the full-width qwen2.5-3b (bf16, random weights from seed 0,
+    6.17 GB) through SageRuntime, batch 4 x 1024, one cold request, then at
+    the middle of each of stages 1-4 (the engine's clock pinned there, as
+    tests/test_runtime.py does; each hit restarts the ladder, as the demo's
+    waits do) the declared and the real memory, then one hit. Checks: real
+    memory falls by >= 90 % of the weights at stage 2 and the declared
+    device bytes fall at stages 2 and 3; each hit lands in its stage; the
+    stage-1 hit skips the context and the data, the stage-2 hit skips the
+    context and pays a real host -> device copy, the stage-3 hit rebuilds
+    the context (``stage_skips``); the stage-2 hit's logits equal the cold
+    request's. Returns the launches."""
+    cfg = ARCHS["qwen2.5-3b"]
+    check(cfg.param_dtype == cfg.compute_dtype == "bfloat16", "full width is bf16")
+    base_alloc = freed_memory()[1]
+    rt = SageRuntime("sage", time_scale=SERVE_TIME_SCALE, load_timeout_s=120.0,
+                     exit_ttl=LADDER_TTL, device="cuda")
+    rt.sage_init()
+    t0 = time.monotonic()
+    fn = _model_function(rt.db, "ladder", cfg, batch=FULL_BATCH, seq=FULL_SEQ, seed=0)
+    init_s = time.monotonic() - t0
+    rt.register_function(fn)
+    weights = rt.db.size_of("ladder/weights")
+    pcie_s = weights / rt.paths.pcie.base_bw * SERVE_TIME_SCALE  # the modelled PCIe leg
+    reqs = {k: make_request(rt.db, fn, batch=FULL_BATCH, seq=FULL_SEQ, vocab=cfg.vocab_size,
+                            seed=s) for k, s in LADDER_SEEDS.items()}
+    eng = rt.engines["ladder"]
+    reset_counts()  # -- the exit-ladder path starts here
+    t0 = time.monotonic()
+    served = {"cold": rt.db.fetch(rt.sage_run(reqs["cold"]))}
+    cold = rt.telemetry.records[-1]
+    stages = []
+    for k in (1, 2, 3, 4):
+        pre = memory_now(rt)
+        eng.clock = PinnedClock(eng.instances[0].ladder.completion_t + (k - 0.5) * LADDER_TTL)
+        eng._advance_ladders()
+        post = memory_now(rt)
+        served[k] = rt.db.fetch(rt.sage_run(reqs[k]))
+        rec = rt.telemetry.records[-1]
+        stages.append({"stage": k, "before_advance": pre, "after_advance": post,
+                       "after_hit": memory_now(rt), "warm_stage": rec.warm_stage,
+                       "e2e_ms": ms(rec.e2e), "gpu_ctx_ms": ms(rec.stages["gpu_ctx"]),
+                       "gpu_data_ms": ms(rec.stages["gpu_data"]), "error": rec.error})
+    wall_s = time.monotonic() - t0
+    launches = counts()  # -- and ends here
+    usage = rt.drain()
+    rt.shutdown()
+    del rt, fn, eng
+    after_raw, after = freed_memory()
+    drop2 = stages[1]["before_advance"]["allocated"] - stages[1]["after_advance"]["allocated"]
+    copy2 = stages[1]["after_hit"]["allocated"] - stages[1]["after_advance"]["allocated"]
+    same = bool(np.array_equal(served[2], served["cold"]))
+    emit({"phase": "exit_ladder", "arch": cfg.name, "params": cfg.param_count(),
+          "weights_bytes": weights, "batch": FULL_BATCH, "seq": FULL_SEQ, "ttl_s": LADDER_TTL,
+          "time_scale": SERVE_TIME_SCALE, "init_s": init_s, "wall_s": wall_s,
+          "modelled_pcie_leg_ms": ms(pcie_s),
+          "cold": {"e2e_ms": ms(cold.e2e), "stages_ms": {s: ms(v) for s, v in cold.stages.items()}},
+          "stages": stages, "stage2_real_drop_bytes": drop2,
+          "stage2_drop_share_of_weights": drop2 / weights, "stage2_hit_real_copy_bytes": copy2,
+          "stage2_logits_equal_cold": same, "launches": launches, "usage_after": usage,
+          "memory_allocated_before": base_alloc, "memory_allocated_after_shutdown": after_raw,
+          "memory_allocated_after_cublas_workspaces_cleared": after})
+    check(cold.error is None and cold.warm_stage is None, f"cold request {cold.error}")
+    for s in stages:
+        check(s["error"] is None and s["warm_stage"] == s["stage"],
+              f"the stage-{s['stage']} hit landed in {s['warm_stage']} ({s['error']})")
+    check(drop2 >= 0.9 * weights, f"stage 2 freed {drop2} real bytes of {weights}")
+    st = {s["stage"]: s for s in stages}
+    check(st[2]["after_advance"]["device_used"] < st[2]["before_advance"]["device_used"]
+          and st[3]["after_advance"]["device_used"] < st[2]["after_advance"]["device_used"],
+          "the declared device bytes did not fall at stages 2 and 3")
+    for k in (1, 2):  # the context held: no reservation, no build
+        check(st[k]["after_advance"]["context_bytes"] > 0
+              and st[k]["gpu_ctx_ms"] < ms(LADDER_SKIP_S),
+              f"the stage-{k} hit did not skip gpu_ctx: {st[k]}")
+    check(st[1]["after_advance"]["device_used"] >= weights
+          and st[1]["gpu_data_ms"] < ms(LADDER_SKIP_S),
+          f"the stage-1 hit did not skip gpu_data: {st[1]}")
+    check(st[2]["gpu_data_ms"] >= ms(pcie_s) and copy2 >= 0.9 * weights,
+          f"the stage-2 hit paid no host -> device copy: {st[2]}, {copy2} bytes")
+    check(st[3]["after_advance"]["context_bytes"] == 0 and st[3]["gpu_ctx_ms"] > 0
+          and st[3]["after_hit"]["context_bytes"] > 0,
+          f"the stage-3 hit did not rebuild the context: {st[3]}")
+    check(same, "the stage-2 hit's logits differ from the cold request's")
+    want = {**dict.fromkeys(KERNELS, 0), fa.NAME: 5 * cfg.num_attn_layers}
+    check(launches == want, f"exit ladder launches {launches} != {want}")
+    check(usage["device_used"] == usage["host_used"] == 0, f"exit ladder teardown {usage}")
+    check(after <= base_alloc, f"exit ladder: device memory not freed: {after} > {base_alloc}")
+    return launches
 
 
 def profiled(fn, by_op=False):
@@ -1440,13 +1596,8 @@ def phase_kernels_bwd():
     timing["library_ms"] = timing["library_fwd_bwd_ms"] - timing["library_fwd_ms"]
     timing["ms_again"] = time_ms(kern)
     timing["parts_ms"] = {name: time_ms(fn) for name, fn in parts.items()}
-    _, _, fwd_flops, _ = attention_bound_ms(TRAIN_SHAPE, dtype)
-    B, Sq, Sk, Hq, Hkv, Dh, _ = TRAIN_SHAPE
-    flops = 2.5 * fwd_flops  # five (query, key) products against the forward's two
-    elt = torch.finfo(dtype).bits / 8
-    # q, o, dO read and dq written; k, v read and dk, dv written; lse read
-    nbytes = elt * (4 * B * Sq * Hq * Dh + 4 * B * Sk * Hkv * Dh) + 4 * B * Hq * Sq
-    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    bound_ms, bound_by, flops, nbytes = attention_bwd_bound_ms(TRAIN_SHAPE, dtype)
+    fwd_flops = attention_bound_ms(TRAIN_SHAPE, dtype)[2]
     emit({"phase": "kernel_timing", "kernel": fab.NAME, "shape": list(TRAIN_SHAPE),
           "dtype": "bfloat16", **timing, "bound_ms": bound_ms, "bound_by": bound_by,
           "flops": flops, "bytes": nbytes, "executed_flops": 3.5 * fwd_flops,
@@ -1456,22 +1607,6 @@ def phase_kernels_bwd():
     del args, q, k, v, o, lse, do, qt, kt, vt, bufs, parts
     return {"max_abs_err": worst, **timing, "bound_ms": bound_ms, "bound_by": bound_by,
             "shape": list(TRAIN_SHAPE)}
-
-
-def model_flops(cfg, batch, seq):
-    """(dense, attention, SSD) FLOPs of one train step's useful work: 6 per
-    parameter per token; 3 x the causal attention forward's products per
-    attention layer; the SSD scan's forward and backward products as
-    ``ssd_bound_ms`` and ``ssd_bwd_bound_ms`` count them (causal pairs only)
-    per Mamba2 layer (no recompute counted)."""
-    dense = 6.0 * cfg.param_count() * batch * seq
-    shape = (batch, seq, seq, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, True)
-    attn = 3.0 * attention_bound_ms(shape, torch.bfloat16)[2] * cfg.num_attn_layers
-    ssd_shape = (batch, seq, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)
-    ssm = ((ssd_bound_ms(ssd_shape, torch.bfloat16)[2]
-            + ssd_bwd_bound_ms(ssd_shape, torch.bfloat16)[2]) * cfg.num_mamba_layers
-           if cfg.num_mamba_layers else 0.0)
-    return dense, attn, ssm
 
 
 def step_breakdown(cfg, state, batch):
@@ -1579,7 +1714,7 @@ def phase_train(arch, phase):
     breakdown = step_breakdown(cfg, state, batches[TRAIN_STEPS])
     step_med = statistics.median(step_s[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    dense, attn, ssm = model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    dense, attn, ssm = train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     del state, batches, met
     gc.collect()
     torch.cuda.empty_cache()
@@ -1594,7 +1729,7 @@ def phase_train(arch, phase):
           "grad_norms": gnorms, "step_s": step_s, "step_s_median_2_10": step_med,
           "tokens_per_s": tokens / step_med, "model_flops_dense": dense,
           "model_flops_attention": attn, "model_flops_ssd": ssm,
-          "mfu_vs_989_tflops": (dense + attn + ssm) / step_med / 989e12,
+          "mfu_vs_989_tflops": (dense + attn + ssm) / step_med / PEAK_FLOPS[torch.bfloat16],
           "max_memory_allocated": peak, "memory_allocated_before": base_alloc,
           "launches": launches, "launches_per_step": per_step, "profiled_step": breakdown})
     check(all(np.isfinite(x) for x in losses + gnorms), f"{phase}: not finite {losses} {gnorms}")
@@ -1602,6 +1737,19 @@ def phase_train(arch, phase):
     check(per_step == [want] * TRAIN_STEPS, f"{phase}: launches per step {per_step} != {want}")
     check(peak < 80e9, f"{phase}: peak memory {peak}")
     return launches
+
+
+@contextlib.contextmanager
+def plain_routes():
+    """``kernels.ops``' entry points with ``use_kernel=False``: the models
+    run the plain versions on the card."""
+    routes = (ops.flash_attention, ops.decode_attention, ops.ssd_scan)
+    ops.flash_attention, ops.decode_attention, ops.ssd_scan = (
+        functools.partial(f, use_kernel=False) for f in routes)
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.decode_attention, ops.ssd_scan = routes
 
 
 def train_grad_check(arch):
@@ -1625,13 +1773,8 @@ def train_grad_check(arch):
               == (cfg.num_attn_layers, cfg.num_mamba_layers),
               f"{arch}: the kernel route ran {fab.launches - before[0]} K1 and "
               f"{ssdb.launches - before[1]} K3 backward kernels")
-        routes = (ops.flash_attention, ops.ssd_scan)
-        ops.flash_attention = functools.partial(routes[0], use_kernel=False)
-        ops.ssd_scan = functools.partial(routes[1], use_kernel=False)
-        try:
+        with plain_routes():
             pmet, want = _value_and_grad(cfg, params, batch)
-        finally:
-            ops.flash_attention, ops.ssd_scan = routes
         worst, per_leaf, ok = 0.0, {}, True
         for (key, _), g, w in zip(T.items(params), got, want):
             err = (g.float() - w.float()).abs().max().item()
@@ -1732,6 +1875,160 @@ def train_reduced():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the port's accounting of work: analysis.op_analysis on the card
+# ---------------------------------------------------------------------------
+
+ANALYSIS_ARCH = "qwen2.5-3b"
+
+
+def analysis_steps(cfg, state, use_kernel):
+    """``analyze_step`` over the prefill (4 x 1024), one decode step after
+    it and one train step (``phase_train``'s settings) of ``cfg``, on
+    ``state``'s weights (the train step updates them in place); the plain
+    versions inside ``plain_routes`` unless ``use_kernel``. Returns the
+    reports and the step functions (for timing)."""
+    data = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(0).items()}
+    params = state["params"]
+    prefill_step, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    train = make_train_step(cfg, TRAIN_OPT)
+    tokens = {"tokens": batch["tokens"]}
+    with torch.inference_mode():
+        cache = init_cache(cfg, TRAIN_BATCH, TRAIN_SEQ + 1, device="cuda")
+    positions = torch.full((TRAIN_BATCH,), TRAIN_SEQ, dtype=torch.int32, device="cuda")
+    nxt = batch["tokens"][:, -1:]
+
+    def run_prefill():
+        with torch.inference_mode():
+            return prefill_step(params, tokens, cache)
+
+    def run_decode():
+        with torch.inference_mode():
+            return decode(params, nxt, positions, cache)
+
+    def run_train():
+        return train(state, batch)
+
+    steps = {"prefill": run_prefill, "decode": run_decode, "train": run_train}
+    with contextlib.nullcontext() if use_kernel else plain_routes():
+        reports = {name: analyze_step(fn) for name, fn in steps.items()}
+    return reports, steps
+
+
+def same_counts(a, b) -> bool:
+    """Two reports' counts equal exactly and their bytes within 1 %."""
+    def close(x, y):
+        return abs(x - y) <= 0.01 * max(abs(x), abs(y))
+
+    return (a["flops"] == b["flops"] and a["dot_flops"] == b["dot_flops"]
+            and {k: v["count"] for k, v in a["by_op"].items()}
+            == {k: v["count"] for k, v in b["by_op"].items()}
+            and {k: (v["calls"], v["flops"]) for k, v in a["by_kernel"].items()}
+            == {k: (v["calls"], v["flops"]) for k, v in b["by_kernel"].items()}
+            and close(a["hbm_bytes"], b["hbm_bytes"])
+            and close(a["hbm_bytes_fused"], b["hbm_bytes_fused"]))
+
+
+def event_ms(fn, reps=5) -> dict:
+    """The span of one call of ``fn`` between two CUDA events (idle gaps
+    between its launches included), after one warm-up call: the median,
+    least and most of ``reps`` calls."""
+    fn()
+    spans = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    return {"median": statistics.median(spans), "min": min(spans), "max": max(spans)}
+
+
+def phase_analysis():
+    """``analysis.op_analysis.analyze_step`` on qwen2.5-3b on the card: at
+    depth 2 the reports with the kernels and with ``use_kernel=False``
+    (counts equal, bytes within 1 %); at full width (bf16, seed 0) the
+    prefill 4 x 1024, one decode step and one train step, each report's
+    FLOPs, bytes, kernel units and roofline terms beside the step's device
+    time (``event_ms``: the median of five spans after a warm-up). Checks: K1's unit FLOPs are ``attention_bound_ms``'s count times
+    its calls; the prefill's product FLOPs lie within 10 % of
+    ``model_flops`` plus the attention products (and within 1 % of that
+    count with the embedding gathered and only the last position
+    unembedded, as the prefill does). Returns the launches of the
+    full-width reports."""
+    full = ARCHS[ANALYSIS_ARCH]
+    t0 = time.monotonic()
+    small = dataclasses.replace(full, num_layers=2)
+    state = init_train_state(small, TRAIN_OPT, torch.Generator("cuda").manual_seed(0), "cuda")
+    kern = analysis_steps(small, state, use_kernel=True)[0]
+    plain = analysis_steps(small, state, use_kernel=False)[0]
+    del state
+    parity = {name: same_counts(kern[name], plain[name]) for name in kern}
+    emit({"phase": "analysis", "check": "kernels_vs_plain", "arch": small.name, "depth": 2,
+          "equal": parity, "seconds": time.monotonic() - t0,
+          "reports": {name: {route: {k: r[name][k] for k in ("flops", "dot_flops", "hbm_bytes",
+                                                           "hbm_bytes_fused", "by_kernel")}
+                             for route, r in (("kernels", kern), ("plain", plain))}
+                      for name in kern}})
+    check(all(parity.values()), f"analysis: kernel and plain reports differ: {parity}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.monotonic()
+    state = init_train_state(full, TRAIN_OPT, torch.Generator("cuda").manual_seed(0), "cuda")
+    reset_counts()  # -- the analysis path starts here
+    reports, steps = analysis_steps(full, state, use_kernel=True)
+    launches = counts()  # -- and ends here
+    analysed_s = time.monotonic() - t0
+    device_ms = {name: event_ms(fn) for name, fn in steps.items()}
+    del state, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = {"prefill": TRAIN_BATCH * TRAIN_SEQ, "decode": TRAIN_BATCH,
+              "train": TRAIN_BATCH * TRAIN_SEQ}
+    out = {}
+    for name, rep in reports.items():
+        roof = roofline_from_report(full, rep, chips=1, mode=name, tokens=tokens[name])
+        out[name] = {k: rep[k] for k in ("flops", "dot_flops", "hbm_bytes", "hbm_bytes_fused",
+                                        "by_kernel")}
+        out[name].update(roofline=roof, device_ms=device_ms[name],
+                         bound_share=roof["step_time_bound_s"] * 1e3
+                         / device_ms[name]["median"],
+                         top_ops=sorted(([k, v["count"], v["flops"], v["bytes"]]
+                                         for k, v in rep["by_op"].items()),
+                                        key=lambda r: -r[3])[:6])
+    shape = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, full.num_heads, full.num_kv_heads,
+             full.head_dim, True)
+    k1 = attention_bound_ms(shape, torch.bfloat16)[2]
+    pre = reports["prefill"]
+    attn = pre["by_kernel"][fa.NAME]["flops"]
+    embed = full.vocab_size * full.d_model
+    loose = model_flops(full, "prefill", tokens["prefill"]) + attn
+    # the embedding is a gather, and only the last position is unembedded
+    tight = (2.0 * tokens["prefill"] * (full.param_count() - embed)
+             + 2.0 * TRAIN_BATCH * embed + attn)
+    emit({"phase": "analysis", "arch": full.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "steps": out, "launches": launches, "seconds_analysed": analysed_s,
+          "prefill_dot_flops_over_model_flops_plus_attention": pre["dot_flops"] / loose,
+          "prefill_dot_flops_over_gathered_embedding_count": pre["dot_flops"] / tight})
+    for name in ("prefill", "train"):
+        row = reports[name]["by_kernel"][fa.NAME]
+        check(row["flops"] == k1 * row["calls"],
+              f"analysis {name}: K1 units {row} != {row['calls']} x {k1}")
+    check(abs(pre["dot_flops"] - loose) <= 0.1 * loose,
+          f"analysis: prefill dot FLOPs {pre['dot_flops']} vs {loose}")
+    check(abs(pre["dot_flops"] - tight) <= 0.01 * tight,
+          f"analysis: prefill dot FLOPs {pre['dot_flops']} vs {tight}")
+    check(reports["decode"]["by_kernel"][dec.NAME]["calls"] == full.num_attn_layers,
+          f"analysis: decode units {reports['decode']['by_kernel']}")
+    check(reports["train"]["by_kernel"][fab.NAME]["calls"] == full.num_attn_layers,
+          f"analysis: train units {reports['train']['by_kernel']}")
+    return launches
+
+
 def main():
     t_start = time.monotonic()
     seconds = {}
@@ -1752,7 +2049,8 @@ def main():
     paths = {name: dict.fromkeys(("reduced", "full_width", "mamba_reduced", "mamba_full",
                                   "gateway", "prefill", "decode", "moe_full", "moe_prefill",
                                   "moe_decode", "whisper_prefill", "whisper_decode",
-                                  "zoo_reduced", "train", "train_reduced", "train_mamba"),
+                                  "zoo_reduced", "train", "train_reduced", "train_mamba",
+                                  "serve", "serve_workload", "exit_ladder", "analysis"),
                                  0)
              for name in KERNELS}
 
@@ -1766,6 +2064,9 @@ def main():
     add("mamba_full", timed("mamba_full", phase_full, "mamba_full", "mamba2-780m", "mamba"))
     add("moe_full", timed("moe_full", phase_full, "moe_full", "olmoe-1b-7b", "olmoe"))
     paths[fa.NAME]["gateway"] = timed("gateway", phase_gateway)
+    add("serve", timed("serve", phase_serve))
+    add("serve_workload", timed("serve_workload", phase_serve_workload))
+    add("exit_ladder", timed("exit_ladder", phase_exit_ladder))
     timed("decode", phase_decode, "qwen2.5-3b", paths)
     timed("mamba_decode", phase_decode, "mamba2-780m", paths)
     timed("moe_decode", phase_decode, "olmoe-1b-7b", paths, path="moe_")
@@ -1778,6 +2079,7 @@ def main():
     add("train_reduced", timed("train_reduced", train_reduced))
     add("train_mamba", timed("train_mamba", phase_train, MAMBA_TRAIN_ARCH, "train_mamba"))
     timed("train_grad_check_mamba", train_grad_check, MAMBA_TRAIN_ARCH)
+    add("analysis", timed("analysis", phase_analysis))
     main_path = {fa.NAME: "full_width", fab.NAME: "train", dec.NAME: "decode",
                  ssd.NAME: "mamba_full", ssdb.NAME: "train_mamba"}
     replaces = {
@@ -1795,7 +2097,10 @@ def main():
                        (ssd.NAME, "zoo_reduced"), (fa.NAME, "train"),
                        (fa.NAME, "train_reduced"), (fab.NAME, "train_reduced"),
                        (ssd.NAME, "train_mamba"), (ssd.NAME, "train_reduced"),
-                       (ssdb.NAME, "train_reduced")):
+                       (ssdb.NAME, "train_reduced"), (fa.NAME, "serve"),
+                       (fa.NAME, "serve_workload"), (ssd.NAME, "serve_workload"),
+                       (fa.NAME, "exit_ladder"), (fa.NAME, "analysis"),
+                       (fab.NAME, "analysis"), (dec.NAME, "analysis")):
         check(paths[name][path] > 0, f"{name} never launched on the {path} path")
     emit({"phase": "wall", "seconds": time.monotonic() - t_start, "by_phase": seconds})
     emit({"kernels": [{

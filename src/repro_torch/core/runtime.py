@@ -15,6 +15,7 @@ virtual-time twin for trace-scale experiments is ``core.simulator``.
 from __future__ import annotations
 
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional
 
@@ -258,6 +259,17 @@ class SageRuntime:
     # ------------------------------------------------------------------
     def is_idle(self) -> bool:
         return self._inflight == 0
+
+    def drain(self, timeout: float = 60.0) -> Dict[str, int]:
+        """Retire this node gracefully: wait up to ``timeout`` seconds for
+        its in-flight invocations to finish (their bookkeeping settles
+        after the caller's futures resolve), then :meth:`drain_teardown`.
+        Returns :meth:`memory_usage` after the teardown (all zeros)."""
+        deadline = time.monotonic() + timeout
+        while not self.is_idle() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        self.drain_teardown()
+        return self.memory_usage()
 
     def drain_teardown(self) -> None:
         """Retire a drained node once idle: the SAME teardown a crash

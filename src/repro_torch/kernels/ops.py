@@ -17,6 +17,11 @@ differentiable: each wrapper goes through an autograd Function whose
 backward is a hand-written kernel (K1's backward, and K3's in
 ``ssd_scan_bwd``). The plain versions are differentiable by autograd, so
 every family trains on the CPU and on the card.
+
+Accounting: while ``analysis.op_analysis.analyze_step`` runs, ``counter``
+is its counter, and each call below (with its backward) counts there as
+one unit of work, whichever route runs; otherwise it is None and a call
+pays that one check.
 """
 from __future__ import annotations
 
@@ -26,6 +31,9 @@ from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd_scan as _ssd
+
+#: ``analyze_step``'s counter while it runs, else None
+counter = None
 
 
 def _resolve(use_kernel, x: torch.Tensor) -> bool:
@@ -43,6 +51,10 @@ def _resolve(use_kernel, x: torch.Tensor) -> bool:
 
 def flash_attention(q, k, v, *, causal=True, block_q=512, block_k=512,
                     scale=None, use_kernel="auto"):
+    if counter is not None and counter.outside():
+        return counter.unit(_fa.NAME, flash_attention, q, k, v, causal=causal,
+                            block_q=block_q, block_k=block_k, scale=scale,
+                            use_kernel=use_kernel)
     if _resolve(use_kernel, q):
         return _fa.flash_attention(q, k, v, causal=causal, block_q=block_q,
                                    block_k=block_k, scale=scale)
@@ -52,6 +64,9 @@ def flash_attention(q, k, v, *, causal=True, block_q=512, block_k=512,
 
 def decode_attention(q, k_cache, v_cache, lengths, *, block_k=1024, scale=None,
                      use_kernel="auto"):
+    if counter is not None and counter.outside():
+        return counter.unit(_dec.NAME, decode_attention, q, k_cache, v_cache, lengths,
+                            block_k=block_k, scale=scale, use_kernel=use_kernel)
     if _resolve(use_kernel, q):
         return _dec.decode_attention(q, k_cache, v_cache, lengths, block_k=block_k,
                                      scale=scale)
@@ -60,6 +75,9 @@ def decode_attention(q, k_cache, v_cache, lengths, *, block_k=1024, scale=None,
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk=128, initial_state=None, use_kernel="auto"):
+    if counter is not None and counter.outside():
+        return counter.unit(_ssd.NAME, ssd_scan, x, dt, A, Bm, Cm, chunk=chunk,
+                            initial_state=initial_state, use_kernel=use_kernel)
     if _resolve(use_kernel, x):
         return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state)
     return _ref.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state)

@@ -1,1 +1,3 @@
-"""Launchers: ``train`` (the fault-tolerant training loop)."""
+"""Launchers: ``train`` (the fault-tolerant training loop), ``serve`` (the
+serving gateway over a Poisson workload) and ``specs`` (meta-tensor
+stand-ins for every model input)."""

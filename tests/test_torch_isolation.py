@@ -11,7 +11,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_modules(path: Path):
@@ -29,6 +30,11 @@ def _imported_modules(path: Path):
 
 def test_sources_exist():
     assert (PORT / "core" / "runtime.py").exists()
+    for path in ("launch/specs.py", "launch/serve.py", "analysis/roofline.py",
+                 "analysis/op_analysis.py"):
+        assert (PORT / path).exists()
+    for name in ("torch_serve_workload", "torch_multistage_demo"):
+        assert (ROOT / "examples" / f"{name}.py").exists()
     assert (ROOT / "chip_smoke.py").exists()
     for name in ("flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan",
                  "ssd_scan_bwd"):
@@ -49,7 +55,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.mamba2, repro_torch.serving, repro_torch.api, "
             "repro_torch.core.simulator, repro_torch.core.faults, "
             "repro_torch.training, repro_torch.training.compression, "
-            "repro_torch.checkpoint, repro_torch.data.pipeline, repro_torch.launch.train; "
+            "repro_torch.checkpoint, repro_torch.data.pipeline, repro_torch.launch.train, "
+            "repro_torch.launch.serve, repro_torch.launch.specs, "
+            "repro_torch.analysis.roofline, repro_torch.analysis.op_analysis; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

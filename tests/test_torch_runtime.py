@@ -31,7 +31,8 @@ def _runtime(system="sage", **kw):
 
 
 def _teardown(rt):
-    """Graceful retire (the crash path's exact release, nothing in flight)."""
+    """Graceful retire (the crash path's exact release, nothing in flight),
+    on either package's runtime (the JAX one has no ``drain``)."""
     deadline = time.monotonic() + 10
     while not rt.is_idle() and time.monotonic() < deadline:
         time.sleep(0.01)
@@ -109,6 +110,21 @@ def test_sage_shares_read_only_across_concurrent():
     rt.shutdown()
 
 
+def test_drain_waits_for_inflight_then_retires():
+    """``drain`` lets the submitted requests finish, then retires the node
+    with the exact release: every request served, nothing left declared."""
+    rt = _runtime()
+    fn = make_model_function(rt.db, "f", arch="qwen2.5-3b")
+    rt.register_function(fn)
+    futs = [rt.submit(make_request(rt.db, fn, seed=i)) for i in range(3)]
+    usage = rt.drain(timeout=120.0)
+    rt.shutdown()
+    assert all(f.done() and f.exception() is None for f in futs)
+    assert rt.retired and rt.is_idle()
+    assert [r.error for r in rt.telemetry.records] == [None] * 3
+    assert usage == {"device_used": 0, "context_bytes": 0, "host_used": 0}
+
+
 def test_fixedgsl_never_shares():
     rt = _runtime("fixedgsl")
     fn = make_model_function(rt.db, "f", arch="qwen2.5-3b")
@@ -135,4 +151,134 @@ def test_warm_stage_recorded():
     assert recs[0].warm_stage is None      # cold
     assert recs[1].warm_stage == 1         # stage-1 warm hit
     assert recs[1].e2e < recs[0].e2e
+    rt.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# the multi-stage exit ladder (tests/test_core.py's TestExitLadder and
+# tests/test_runtime.py's ladder case, on the port)
+# ---------------------------------------------------------------------------
+
+class FakeClock:
+    """The engine's clock pinned at ``t``; its sleeps do not wait."""
+
+    def __init__(self, t):
+        self.t = t
+
+    def now(self):
+        return self.t
+
+    def sleep(self, dt):
+        pass
+
+
+class TestExitLadder:
+    def test_stage_progression(self):
+        from repro_torch.core.exit_policy import ExitLadder
+
+        lad = ExitLadder(ttls=(1.0, 1.0, 1.0, 1.0))
+        lad.on_complete(100.0)
+        assert lad.stage_at(100.5) == 1
+        assert lad.stage_at(101.5) == 2
+        assert lad.stage_at(102.5) == 3
+        assert lad.stage_at(103.5) == 4
+        assert lad.stage_at(104.5) == 5
+
+    def test_actions_fire_once_in_order(self):
+        from repro_torch.core.exit_policy import ExitLadder
+
+        fired = []
+        lad = ExitLadder(ttls=(1.0,) * 4)
+        lad.on_enter = {k: (lambda k=k: fired.append(k)) for k in (2, 3, 4)}
+        lad.on_complete(0.0)
+        lad.advance(1.5)
+        assert fired == [2]
+        lad.advance(3.5)  # skipped ahead two stages -> both fire, in order
+        assert fired == [2, 3, 4]
+        lad.advance(3.6)
+        assert fired == [2, 3, 4]  # idempotent
+
+    def test_reuse_stops_exit_and_reports_stage(self):
+        from repro_torch.core.exit_policy import ExitLadder
+
+        lad = ExitLadder(ttls=(1.0,) * 4)
+        lad.on_complete(0.0)
+        s = lad.on_reuse(1.5)
+        assert s == 2
+        assert lad.stage_at(99.0) == 0  # running again
+
+    def test_warmer_stage_skips_more(self):
+        from repro.core.exit_policy import stage_skips as ref_skips
+        from repro_torch.core.exit_policy import stage_skips
+
+        assert stage_skips == ref_skips
+        assert len(stage_skips[1]) > len(stage_skips[2]) > len(stage_skips[3]) \
+            > len(stage_skips[4])
+        assert "gpu_data" in stage_skips[1] and "gpu_data" not in stage_skips[2]
+        assert "gpu_ctx" in stage_skips[2] and "gpu_ctx" not in stage_skips[3]
+
+
+def _ladder_usage(rt, make_fn, make_req, profile):
+    """tests/test_runtime.py's ladder walk: one cold request, then the
+    engine's clock at the middle of stages 2 and 3 and past stage 5;
+    returns memory_usage() hot and at each of the three."""
+    fn = make_fn(rt.db, "f", arch="qwen2.5-3b", profile=profile)
+    rt.register_function(fn)
+    rt.sage_run(make_req(rt.db, fn, seed=0))
+    eng = rt.engines["f"]
+    t0 = eng.instances[0].ladder.completion_t
+    usage = [rt.memory_usage()]
+    for dt in (15.0, 25.0, 45.0):
+        eng.clock = FakeClock(t0 + dt)
+        eng._advance_ladders()
+        usage.append(rt.memory_usage())
+    rt.shutdown()
+    return usage
+
+
+def test_multi_stage_exit_frees_memory_over_time():
+    """The ladder demotes and frees as the JAX runtime's does, byte for
+    byte: read-only weights to the host at stage 2, the context at stage
+    3, everything past stage 5."""
+    from repro.core.profiles import PROFILES as REF_PROFILES
+    from repro_torch.core.profiles import PROFILES
+
+    ref_rt = RefRuntime("sage", time_scale=0.02, exit_ttl=10.0)
+    ref_rt.sage_init()
+    want = _ladder_usage(ref_rt, ref_make_fn, ref_make_request, REF_PROFILES["resnet50"])
+    got = _ladder_usage(_runtime(exit_ttl=10.0), make_model_function, make_request,
+                        PROFILES["resnet50"])
+    assert got == want
+    hot, stage2, stage3, gone = got
+    assert stage2["device_used"] < hot["device_used"]
+    assert stage3["device_used"] < stage2["device_used"]
+    assert stage3["host_used"] > 0  # RO parked in host RAM
+    assert gone["device_used"] <= stage3["device_used"]
+
+
+def test_demoted_entry_holds_no_device_tensor():
+    """Stage 2 drops the daemon's device copy of the weights, and nothing
+    else of the port (the executor, the shim, the telemetry, the context
+    closure) keeps it alive. The CPU stands in for the card: the database's
+    host -> device leg clones, so the 'device' copy is an object of its own."""
+    import gc
+    import weakref
+
+    rt = _runtime(exit_ttl=10.0)
+    rt.db.to_device = lambda obj: torch.utils._pytree.tree_map(
+        lambda t: t.clone() if isinstance(t, torch.Tensor) else t, obj)
+    fn = make_model_function(rt.db, "f", arch="qwen2.5-3b")
+    rt.register_function(fn)
+    rt.sage_run(make_request(rt.db, fn, seed=0))
+    entry = next(e for e in rt.daemon.function_entries("f") if e.read_only)
+    leaves = torch.utils._pytree.tree_leaves
+    host_leaf = leaves(entry.host_obj)[0]
+    dev_leaf = weakref.ref(leaves(entry.dev_obj)[0])
+    assert dev_leaf() is not None and dev_leaf() is not host_leaf
+    eng = rt.engines["f"]
+    eng.clock = FakeClock(eng.instances[0].ladder.completion_t + 15.0)  # mid stage 2
+    eng._advance_ladders()
+    gc.collect()
+    assert entry.dev_obj is None and entry.host_obj is not None
+    assert dev_leaf() is None, gc.get_referrers(dev_leaf())
     rt.shutdown()
