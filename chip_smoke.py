@@ -5,7 +5,8 @@
 Phases, one JSON line each:
 
 1. card          the card's name and power limit (nvidia-smi), torch and
-                 CUDA versions;
+                 CUDA versions, its total memory (checked against
+                 analysis/roofline.py's HBM_BYTES);
 2. build         builds (or loads) the hand-written kernels from
                  src/repro_torch/kernels/csrc with nvcc, all sources at once;
 3. kernels       every kernel against its plain PyTorch version on the card
@@ -90,27 +91,40 @@ Phases, one JSON line each:
                  profiled step's device time; then every leaf's gradient with
                  the K3 route against use_kernel=False at depth 2 (fp32
                  and bf16);
-15. serve        launch/serve.py's serve() on the card for FixedGSL and SAGE
+15. cells        the production cells' builders (launch/cells.py) on a 1 x 1
+                 (data, model) DeviceMesh over a one-rank NCCL group, the
+                 inputs DTensors placed by distributed/rules.py:
+                 qwen2.5-3b's train cell (3 steps), prefill cell (4 x
+                 1024) and decode cell (4 steps) and mamba2-780m's train
+                 cell (3 steps) at full width, each against the same
+                 model's single-device steps on the same seeded weights
+                 (losses, grad norms, logits), with each step's wall time
+                 beside the single-device step's; all five kernels launch
+                 there. Then the dry-run of qwen2.5-3b x train_4k on the
+                 16 x 16 production mesh (256 fake ranks, no device; a
+                 niced subprocess started after the build): its per-rank
+                 bytes, FLOPs, collective bytes and roofline terms;
+16. serve        launch/serve.py's serve() on the card for FixedGSL and SAGE
                  (the reduced qwen2.5-3b, 16 Poisson requests at rate 8):
                  every request served, K1 launched, no declared or real
                  device bytes left after shutdown; mean and p99 e2e, warm
                  share and shared hits of each;
-16. serve_workload  examples/torch_serve_workload.py's drive() for FixedGSL
+17. serve_workload  examples/torch_serve_workload.py's drive() for FixedGSL
                  and SAGE, 12 requests at rate 12 over the reduced
                  qwen2.5-3b, qwen3-8b and mamba2-780m (K1 and K3);
-17. exit_ladder  the multi-stage exit ladder on real device memory: the
+18. exit_ladder  the multi-stage exit ladder on real device memory: the
                  full-width qwen2.5-3b through SageRuntime, one cold request,
                  then at each of stages 1-4 the declared and the real memory
                  and one hit (its warm stage, e2e, gpu_ctx, gpu_data): the
                  weights leave the card at stage 2, the context at stage 3,
                  and each hit skips what Table 4 says it skips;
-18. analysis     analysis.op_analysis on qwen2.5-3b: the kernels' reports
+19. analysis     analysis.op_analysis on qwen2.5-3b: the kernels' reports
                  against use_kernel=False at depth 2, then the full-width
                  prefill, decode step and train step with their roofline
                  terms beside their device time;
-19. the {"kernels": [...]} line, then the contract's last line.
+20. the {"kernels": [...]} line, then the contract's last line.
 
-(Phases 15-17 run after 8, phase 18 after 14.)
+(Phases 16-18 run after 8, phase 19 after 15.)
 
 Each served path sets every kernel's launch count to 0 just before it runs
 and reads the counts just after. Any failed check exits non-zero before the
@@ -125,6 +139,7 @@ import functools
 import gc
 import importlib.util
 import json
+import os
 import socket
 import statistics
 import subprocess
@@ -147,11 +162,11 @@ import numpy as np  # noqa: E402
 from repro_torch import tree as T  # noqa: E402
 from repro_torch.analysis.op_analysis import analyze_step  # noqa: E402
 from repro_torch.analysis.roofline import (  # noqa: E402
-    PEAK_FLOPS, attention_bound_ms, attention_bwd_bound_ms, decode_bound_ms, model_flops,
+    HBM_BYTES, PEAK_FLOPS, attention_bound_ms, attention_bwd_bound_ms, decode_bound_ms, model_flops,
     roofline_from_report, ssd_bound_ms, ssd_bwd_bound_ms, train_step_flops,
 )
 from repro_torch.api import FunctionSpec, Gateway, TraceWorkload  # noqa: E402
-from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.configs import ARCHS, ShapeConfig  # noqa: E402
 from repro_torch.core import SageRuntime  # noqa: E402
 from repro_torch.core.functions import (  # noqa: E402
     _model_function, make_model_function, make_request,
@@ -167,6 +182,10 @@ from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels import ssd_scan_bwd as ssdb  # noqa: E402
+from repro_torch.launch.cells import (  # noqa: E402
+    _build_decode, _build_prefill, _build_train, get_tuning, place_batch,
+)
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models import decode_step, forward, init_cache, init_params, prefill  # noqa: E402
 from repro_torch.serving import greedy_sample, make_decode_step, make_prefill_step  # noqa: E402
@@ -385,10 +404,14 @@ def phase_card():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(smi.splitlines()[0], flush=True)
+    total = torch.cuda.get_device_properties(0).total_memory
     emit({"phase": "card", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability(0)),
-          "count": torch.cuda.device_count(), "tf32": False})
+          "count": torch.cuda.device_count(), "tf32": False, "total_memory": total,
+          "hbm_bytes_constant": HBM_BYTES})
+    # the sharding rules' ZeRO-decode threshold is 60 % of this constant
+    check(total == HBM_BYTES, f"roofline.HBM_BYTES {HBM_BYTES} != the card's {total}")
     return smi.splitlines()[0]
 
 
@@ -1739,6 +1762,225 @@ def phase_train(arch, phase):
     return launches
 
 
+# the cells phase: card-sized ShapeConfigs for the production cells' builders
+CELL_TRAIN_STEPS, CELL_DECODE_STEPS = 3, 4
+CELL_TOL = {"attention": 2e-2, "ssd": 3e-2}  # tests/test_kernels.py's bf16 tolerances
+DRYRUN_CELL = ("qwen2.5-3b", "train_4k")
+DRYRUN_TIMEOUT_S = 300
+
+
+def start_dryrun(tmp: str):
+    """The production dry-run of one cell (256 fake ranks, meta tensors,
+    no device: CUDA hidden) in a subprocess of its own, started after the
+    build so it runs beside the card's phases; ``finish_dryrun`` collects
+    it."""
+    out = Path(tmp) / "dryrun.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_CELL[0],
+           "--shape", DRYRUN_CELL[1], "--json-out", str(out)]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "1"}
+    # niced, so that the host-bound phases it runs beside keep their cores
+    proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            preexec_fn=lambda: os.nice(10))
+    return proc, out, time.monotonic()
+
+
+def finish_dryrun(job) -> dict:
+    proc, out, t0 = job
+    try:
+        log, _ = proc.communicate(timeout=max(DRYRUN_TIMEOUT_S - (time.monotonic() - t0), 1))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        check(False, f"the dry-run took more than {DRYRUN_TIMEOUT_S} s")
+    check(proc.returncode == 0 and out.exists(), f"the dry-run failed: {log[-3000:]}")
+    rec = json.loads(out.read_text())
+    an = rec["analysis"]
+    return {"cell": list(DRYRUN_CELL), "status": rec["status"], "mesh": rec["mesh"],
+            "chips": rec["chips"], "trace_s": rec["trace_s"],
+            "wall_s": time.monotonic() - t0, "memory": an["memory"],
+            "flops": an["flops"], "dot_flops": an["dot_flops"], "hbm_bytes": an["hbm_bytes"],
+            "collective_bytes": an["collective_bytes"],
+            "collective_traffic_bytes": an["collective_traffic_bytes"],
+            "collectives": an["collectives"], "collective_counts": an["collective_counts"],
+            "by_kernel": an["by_kernel"], "roofline": rec["roofline"]}
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / (1 + max |want|), over tensors or floats."""
+    if isinstance(got, float):
+        return abs(got - want) / (1 + abs(want))
+    return ((got.float() - want.float()).abs().max() / (1 + want.float().abs().max())).item()
+
+
+def cell_train(arch, mesh):
+    """``arch`` at full width: CELL_TRAIN_STEPS single-device steps, then
+    the same from the same seeded state through the production train
+    cell's builder (``_build_train``, a card-sized ShapeConfig) on the 1 x 1
+    mesh; one after the other, never both states at once. Returns (record,
+    the cell's launches)."""
+    cfg = ARCHS[arch]
+    shape = ShapeConfig("card_train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    data = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in data.batch_at(i).items()}
+               for i in range(CELL_TRAIN_STEPS)]
+
+    def run(step, state, feed):
+        losses, norms, secs = [], [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, met = step(state, feed(b))
+            losses.append(float(met["loss"]))
+            secs.append(time.monotonic() - t0)
+            norms.append(float(met["grad_norm"]))
+        return losses, norms, secs
+
+    state = init_train_state(cfg, TRAIN_OPT, torch.Generator("cuda").manual_seed(0), "cuda")
+    ref = run(make_train_step(cfg, TRAIN_OPT), state, lambda b: b)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = init_train_state(cfg, TRAIN_OPT, torch.Generator("cuda").manual_seed(0), "cuda")
+    t0 = time.monotonic()
+    step, (cstate, _), meta = _build_train(cfg, shape, mesh, get_tuning(arch, "train_4k"),
+                                           state=state, opt_cfg=TRAIN_OPT)
+    del state
+    build_s = time.monotonic() - t0
+    reset_counts()  # -- the cells path (train) starts here
+    got = run(step, cstate, lambda b: place_batch(cfg, mesh, b, "train"))
+    launches = counts()  # -- and ends here
+    del cstate, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    tol = CELL_TOL["ssd" if cfg.num_mamba_layers else "attention"]
+    errs = [rel_err(a, b) for a, b in zip(got[0] + got[1], ref[0] + ref[1])]
+    rec = {"arch": arch, "cell": "train", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "policy": {k: list(v) for k, v in meta["policy"].items()},
+           "losses": got[0], "losses_single_device": ref[0], "grad_norms": got[1],
+           "grad_norms_single_device": ref[1], "bit_equal": got[:2] == ref[:2],
+           "max_rel_err": max(errs), "tol": tol, "step_s": got[2],
+           "step_s_single_device": ref[2], "build_s": build_s, "launches": launches}
+    check(all(np.isfinite(x) for x in got[0] + got[1]), f"cells {arch}: not finite {got}")
+    check(max(errs) <= tol, f"cells {arch} train differs from one device: {rec}")
+    return rec, launches
+
+
+def cell_serve(arch, mesh):
+    """``arch`` at full width, inference: the prefill (4 x 1024) and
+    CELL_DECODE_STEPS greedy decode steps on one device, then the prefill
+    cell and the decode cell (its cache filled by the prefill cell's step,
+    then the same tokens) from the production builders on the 1 x 1 mesh.
+    Returns (record, the cells' launches)."""
+    cfg = ARCHS[arch]
+    L = FULL_SEQ + CELL_DECODE_STEPS
+    rng = np.random.default_rng(5)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (FULL_BATCH, FULL_SEQ),
+                                           dtype=np.int32)).cuda()
+    pos0 = torch.full((FULL_BATCH,), FULL_SEQ, dtype=torch.int32, device="cuda")
+
+    def timed_call(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, time.monotonic() - t0
+
+    with torch.no_grad():
+        params = init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+        cache = init_cache(cfg, FULL_BATCH, L)
+        (logits, _, _), pre_s = timed_call(prefill, cfg, params, {"tokens": prompt}, cache)
+        ref, toks, ref_s = [logits], [], []
+        for i in range(CELL_DECODE_STEPS):
+            toks.append(greedy_sample(ref[-1])[:, None])
+            (lg, _), sec = timed_call(decode_step, cfg, params, toks[-1], pos0 + i, cache)
+            ref.append(lg)
+            ref_s.append(sec)
+        del cache
+        tuning = get_tuning(arch, "prefill_32k")
+        pshape = ShapeConfig("card_prefill", "prefill", FULL_SEQ, FULL_BATCH)
+        dshape = ShapeConfig("card_decode", "decode", L, FULL_BATCH)
+        reset_counts()  # -- the cells path (prefill, decode) starts here
+        pstep, (pparams, _, pcache), pmeta = _build_prefill(cfg, pshape, mesh, tuning,
+                                                            params=params)
+        batch = place_batch(cfg, mesh, {"tokens": prompt}, "prefill")
+        (plog, _), cpre_s = timed_call(pstep, pparams, batch, pcache)
+        got = [plog.full_tensor()]
+        del pcache
+        dstep, (dparams, _, _, dcache), dmeta = _build_decode(cfg, dshape, mesh, tuning,
+                                                              params=params)
+        pstep(dparams, batch, dcache)  # fills the decode cell's cache
+        cdec_s = []
+        for i in range(CELL_DECODE_STEPS):
+            ins = place_batch(cfg, mesh, {"tokens": toks[i], "positions": pos0 + i}, "decode")
+            (lg, _), sec = timed_call(dstep, dparams, ins["tokens"], ins["positions"], dcache)
+            got.append(lg.full_tensor())
+            cdec_s.append(sec)
+        launches = counts()  # -- and ends here
+        errs = [rel_err(a, b) for a, b in zip(got, ref)]
+        bit = all(torch.equal(a, b) for a, b in zip(got, ref))
+        del params, pparams, dparams, dcache, got, ref, plog, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    tol = CELL_TOL["attention"]
+    rec = {"arch": arch, "cell": "prefill+decode", "batch": FULL_BATCH, "prompt": FULL_SEQ,
+           "decode_steps": CELL_DECODE_STEPS, "cache_len": L,
+           "zero_shard_decode": dmeta["zero_shard_decode"],
+           "max_rel_err_logits": errs, "bit_equal": bit, "tol": tol,
+           "prefill_s": cpre_s, "prefill_s_single_device": pre_s,
+           "decode_step_s": cdec_s, "decode_step_s_single_device": ref_s,
+           "launches": launches,
+           "note": "the decode cell merges K2's per-split partials across the cache's "
+                   "sequence shards in PyTorch (distributed.local.merge_partials); one "
+                   "device merges them in K2's combine kernel"}
+    check(max(errs) <= tol, f"cells {arch} logits differ from one device: {rec}")
+    return rec, launches
+
+
+def phase_cells(dryrun_job):
+    """The production cells' builders (launch/cells.py) on a 1 x 1 (data,
+    model) mesh over a one-rank NCCL group: qwen2.5-3b's train, prefill and
+    decode cells and mamba2-780m's train cell at full width, each against
+    the same model's single-device steps on the same seeded weights; then
+    the dry-run of one production cell (started after the build).
+    Returns the cells' launches by kernel."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch._C._cuda_clearCublasWorkspaces()  # each thread's 32 MiB (autograd's too)
+    base = torch.cuda.memory_allocated()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0)
+    launches = dict.fromkeys(KERNELS, 0)
+    recs = []
+    try:
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        for fn, arch in ((cell_train, TRAIN_ARCH), (cell_serve, TRAIN_ARCH),
+                         (cell_train, MAMBA_TRAIN_ARCH)):
+            rec, got = fn(arch, mesh)
+            recs.append(rec)
+            for n, c in got.items():
+                launches[n] += c
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch._C._cuda_clearCublasWorkspaces()
+    after = torch.cuda.memory_allocated()
+    dry = finish_dryrun(dryrun_job)
+    emit({"phase": "cells", "mesh": {"data": 1, "model": 1}, "backend": "nccl",
+          "cells": recs, "launches": launches, "memory_allocated_before": base,
+          "memory_allocated_after": after, "dryrun": dry})
+    check(after == base, f"cells: memory_allocated {after} != its baseline {base}")
+    check(dry["status"] == "OK" and dry["collective_bytes"] > 0, f"dry-run: {dry}")
+    for name in KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the cells path: {launches}")
+    return launches
+
+
 @contextlib.contextmanager
 def plain_routes():
     """``kernels.ops``' entry points with ``use_kernel=False``: the models
@@ -2041,6 +2283,18 @@ def main():
 
     smi = timed("card", phase_card)
     timed("build", phase_build)
+    tmp = tempfile.TemporaryDirectory()
+    dryrun_job = start_dryrun(tmp.name)  # runs beside the phases until `cells`
+    try:
+        run_phases(smi, timed, seconds, t_start, dryrun_job)
+    finally:
+        if dryrun_job[0].poll() is None:
+            dryrun_job[0].kill()
+            dryrun_job[0].communicate()
+        tmp.cleanup()
+
+
+def run_phases(smi, timed, seconds, t_start, dryrun_job):
     timings = {fa.NAME: timed("kernels", phase_kernels),
                fab.NAME: timed("kernels_bwd", phase_kernels_bwd),
                dec.NAME: timed("kernels_decode", phase_kernels_decode),
@@ -2050,7 +2304,8 @@ def main():
                                   "gateway", "prefill", "decode", "moe_full", "moe_prefill",
                                   "moe_decode", "whisper_prefill", "whisper_decode",
                                   "zoo_reduced", "train", "train_reduced", "train_mamba",
-                                  "serve", "serve_workload", "exit_ladder", "analysis"),
+                                  "cells", "serve", "serve_workload", "exit_ladder",
+                                  "analysis"),
                                  0)
              for name in KERNELS}
 
@@ -2079,6 +2334,7 @@ def main():
     add("train_reduced", timed("train_reduced", train_reduced))
     add("train_mamba", timed("train_mamba", phase_train, MAMBA_TRAIN_ARCH, "train_mamba"))
     timed("train_grad_check_mamba", train_grad_check, MAMBA_TRAIN_ARCH)
+    add("cells", timed("cells", phase_cells, dryrun_job))
     add("analysis", timed("analysis", phase_analysis))
     main_path = {fa.NAME: "full_width", fab.NAME: "train", dec.NAME: "decode",
                  ssd.NAME: "mamba_full", ssdb.NAME: "train_mamba"}
@@ -2100,7 +2356,8 @@ def main():
                        (ssdb.NAME, "train_reduced"), (fa.NAME, "serve"),
                        (fa.NAME, "serve_workload"), (ssd.NAME, "serve_workload"),
                        (fa.NAME, "exit_ladder"), (fa.NAME, "analysis"),
-                       (fab.NAME, "analysis"), (dec.NAME, "analysis")):
+                       (fab.NAME, "analysis"), (dec.NAME, "analysis"),
+                       *((name, "cells") for name in KERNELS)):
         check(paths[name][path] > 0, f"{name} never launched on the {path} path")
     emit({"phase": "wall", "seconds": time.monotonic() - t_start, "by_phase": seconds})
     emit({"kernels": [{

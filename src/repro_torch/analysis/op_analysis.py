@@ -18,8 +18,10 @@ returns a report with the keys ``roofline.roofline_from_report`` reads:
 * ``hbm_bytes_fused``-- the same without the elementwise ops and casts: the
                         traffic left if those fused into their neighbours;
 * ``collective_bytes`` and ``collective_traffic_bytes`` -- the c10d
-                        collectives' operand sizes, and a per-rank traffic
-                        estimate with ring factors, as ``hlo_analysis`` does;
+                        collectives' operand sizes (and the functional
+                        collectives' that ``DTensor`` issues), and a
+                        per-rank traffic estimate with ring factors, as
+                        ``hlo_analysis`` does;
 * ``by_op``          -- count, flops and bytes per aten op;
 * ``by_kernel``      -- calls, flops and bytes per hand kernel.
 
@@ -49,6 +51,12 @@ a ``torch.autograd.Function``, whose backward is the unit's backward call;
 the tensors that route saves are kept until that backward, even under
 remat. With no analysis running, ``kernels.ops`` pays one ``None`` check.
 
+On ``DTensor``s (a cell's step on a mesh) the mode lets ``DTensor`` run
+each op and counts what it runs on this rank: the local ops on the
+shards' shapes and the collectives of its redistributions. The ops that
+``DTensor`` runs on fake tensors to find the global shapes are not work
+and are not counted. So a dry-run's report is one rank's.
+
 Eager mode runs every layer of a stack, so the JAX package's trip-count
 multiplication has no counterpart: a loop of L layers counts L times.
 
@@ -63,6 +71,8 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -95,8 +105,16 @@ _GATHERS = {aten.embedding, aten.index_select, aten.gather, aten.index}
 # the slots), as hlo_analysis counts a scatter
 _SCATTERS = {aten.index_put_, aten.index_put, aten.scatter, aten.scatter_, aten.scatter_add,
              aten.scatter_add_, aten.index_add, aten.index_add_, aten.index_copy_}
-# c10d op -> (collective, index of its operand argument)
+# c10d op (and the functional collectives ``DTensor`` issues, namespace
+# ``_c10d_functional``) -> (collective, index of its operand argument)
+_COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional", "_c10d_functional_autograd")
 _COLLECTIVES = {
+    "all_gather_into_tensor": ("all-gather", 0),
+    "all_gather_into_tensor_coalesced": ("all-gather", 0),
+    "all_reduce": ("all-reduce", 0), "all_reduce_coalesced": ("all-reduce", 0),
+    "reduce_scatter_tensor": ("reduce-scatter", 0),
+    "reduce_scatter_tensor_coalesced": ("reduce-scatter", 0),
+    "all_to_all_single": ("all-to-all", 0), "broadcast": ("broadcast", 0),
     "allreduce_": ("all-reduce", 0), "allreduce_coalesced_": ("all-reduce", 0),
     "allgather_": ("all-gather", 1), "_allgather_base_": ("all-gather", 1),
     "allgather_into_tensor_coalesced_": ("all-gather", 1),
@@ -143,7 +161,9 @@ def _attention_work(q, k, v, *, causal=True, **_) -> Dict[str, Work]:
 
 def _decode_work(q, k_cache, v_cache, lengths, **_) -> Dict[str, Work]:
     B, L, Hkv, Dh = k_cache.shape
-    lens = lengths.clamp(0, L).tolist()  # what this call's data needs
+    # what this call's data needs; a dry-run's lengths (meta) hold no data,
+    # and its cache is counted full
+    lens = [L] * B if lengths.is_meta else lengths.clamp(0, L).tolist()
     return {"decode_attention":
             roofline.decode_bound_ms((B, L, q.shape[2], Hkv, Dh), lens, q.dtype)[2:]}
 
@@ -297,6 +317,13 @@ class _Counter(TorchDispatchMode):
     # -- aten ops ---------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            # let DTensor run it: the mode then sees each rank's local ops and
+            # the collectives of its redistributions
+            return NotImplemented
+        if any(issubclass(t, FakeTensor) for t in types):
+            # DTensor's sharding propagation, on the global shapes: not work
+            return func(*args, **kwargs)
         if self.depth == 0 and torch._C._dispatch_has_kernel_for_dispatch_key(
                 func.name(), "CompositeImplicitAutograd"):
             with self:
@@ -309,8 +336,11 @@ class _Counter(TorchDispatchMode):
         return out
 
     def _count(self, func, args, kwargs, out) -> None:
-        if func.namespace == "c10d":
-            self._count_collective(func, args)
+        if func.namespace in _COLLECTIVE_NAMESPACES:
+            name = func.overloadpacket.__name__
+            # the functional ones also have waits and autograd wrappers
+            if func.namespace == "c10d" or name in _COLLECTIVES:
+                self._count_collective(func, args)
             return
         packet = func.overloadpacket
         ins, outs = _tensors((args, kwargs)), _tensors(out)
@@ -352,9 +382,7 @@ class _Counter(TorchDispatchMode):
         base, at = _COLLECTIVES.get(func.overloadpacket.__name__,
                                     (func.overloadpacket.__name__, 0))
         operand = _nbytes(_tensors(args[at]))
-        group = next((a for a in args if hasattr(a, "size") and not isinstance(
-            a, (torch.Tensor, list, tuple))), None)
-        gs = max(int(group.size()), 1) if group is not None else 1
+        gs = _group_size(args)
         if base == "all-gather":
             traffic = operand * (gs - 1)  # out = gs x operand: out (gs - 1) / gs
         elif base == "all-reduce":
@@ -369,6 +397,24 @@ class _Counter(TorchDispatchMode):
             rep.collective_traffic_bytes += traffic
             rep.collectives[base] = rep.collectives.get(base, 0.0) + operand
             rep.collective_counts[base] = rep.collective_counts.get(base, 0) + 1
+
+
+def _group_size(args) -> int:
+    """The ranks of a collective's group: a c10d op carries the group, a
+    functional one its name (and sometimes its size)."""
+    group = next((a for a in args if hasattr(a, "size") and not isinstance(
+        a, (torch.Tensor, list, tuple))), None)
+    if group is not None:
+        return max(int(group.size()), 1)
+    # the group's name is the last string of every functional collective
+    name = next((a for a in reversed(args) if isinstance(a, str)), None)
+    if name is not None:
+        from torch.distributed.distributed_c10d import _resolve_process_group
+        try:
+            return max(int(_resolve_process_group(name).size()), 1)
+        except (RuntimeError, ValueError, KeyError):
+            pass
+    return 1
 
 
 def analyze_step(fn, *args, **kwargs) -> dict:

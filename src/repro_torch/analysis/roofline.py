@@ -37,6 +37,10 @@ from repro_torch.configs.base import ModelConfig
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BW = 3.35e12
 LINK_BW = 450e9
+# one card's device memory in bytes, as torch.cuda.get_device_properties(0)
+# .total_memory reports it on an H100 80GB HBM3 (chip_smoke.py checks it on
+# the card). The rules' ZeRO-decode threshold is 60 % of it.
+HBM_BYTES = 85_017_493_504
 
 
 def model_flops(cfg: ModelConfig, mode: str, tokens: int) -> float:

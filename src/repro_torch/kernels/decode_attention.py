@@ -131,8 +131,23 @@ def decode_attention(
 ) -> torch.Tensor:
     """Decode attention on the card. ``block_k`` is accepted for the JAX
     signature; the kernel picks its own tiles and splits."""
-    global launches
     del block_k
+    return _launch(q, k_cache, v_cache, lengths, scale)[0]
+
+
+def decode_attention_partials(q, k_cache, v_cache, lengths, *, block_k: int = 1024,
+                              scale: Optional[float] = None):
+    """The same launch, returning the per-split partials the combine kernel
+    merged: acc (B, Hq, n_split, Dh), unnormalised, and (m, l) (B, Hq,
+    n_split, 2), fp32; a split past a length holds m = -1e30 (the
+    kernel's kNegInf), l = 0, acc = 0. A cache split over ranks along the
+    sequence merges these across ranks (``distributed.local``)."""
+    del block_k
+    return _launch(q, k_cache, v_cache, lengths, scale)[1:]
+
+
+def _launch(q, k_cache, v_cache, lengths, scale):
+    global launches
     check_inputs(q, k_cache, v_cache, lengths)
     B, _, Hq, Dh = q.shape
     L, Hkv = k_cache.shape[1], k_cache.shape[2]
@@ -151,4 +166,4 @@ def decode_attention(
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
     with _count_lock:  # the runtime's executor threads may launch concurrently
         launches += 1
-    return out
+    return out, part_acc, part_ml

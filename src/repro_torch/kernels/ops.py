@@ -18,6 +18,13 @@ backward is a hand-written kernel (K1's backward, and K3's in
 ``ssd_scan_bwd``). The plain versions are differentiable by autograd, so
 every family trains on the CPU and on the card.
 
+Sharded tensors: a ``DTensor`` (a cell's step on a mesh) goes to
+``distributed.local``, which runs the entry point below on each rank's
+shards through ``local_map`` with stated placements (heads over
+``model`` for K1 and K3, the cache's sequence over ``model`` for K2, whose
+per-shard partials are merged across ranks). The kernels never see a
+``DTensor``, and no weight is gathered whole for them.
+
 Accounting: while ``analysis.op_analysis.analyze_step`` runs, ``counter``
 is its counter, and each call below (with its backward) counts there as
 one unit of work, whichever route runs; otherwise it is None and a call
@@ -27,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.compat import is_dtensor
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
@@ -51,6 +59,10 @@ def _resolve(use_kernel, x: torch.Tensor) -> bool:
 
 def flash_attention(q, k, v, *, causal=True, block_q=512, block_k=512,
                     scale=None, use_kernel="auto"):
+    if is_dtensor(q):
+        from repro_torch.distributed import local
+        return local.flash_attention(q, k, v, causal=causal, block_q=block_q,
+                                     block_k=block_k, scale=scale, use_kernel=use_kernel)
     if counter is not None and counter.outside():
         return counter.unit(_fa.NAME, flash_attention, q, k, v, causal=causal,
                             block_q=block_q, block_k=block_k, scale=scale,
@@ -63,18 +75,30 @@ def flash_attention(q, k, v, *, causal=True, block_q=512, block_k=512,
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, block_k=1024, scale=None,
-                     use_kernel="auto"):
+                     use_kernel="auto", partials=False):
+    """With ``partials`` the unnormalised per-split partials (acc (B, Hq, n,
+    Dh), (m, l) (B, Hq, n, 2), fp32) in place of the output, for a merge
+    with other shards' (``distributed.local.merge_partials``)."""
+    if is_dtensor(k_cache):
+        from repro_torch.distributed import local
+        return local.decode_attention(q, k_cache, v_cache, lengths, block_k=block_k,
+                                      scale=scale, use_kernel=use_kernel)
     if counter is not None and counter.outside():
         return counter.unit(_dec.NAME, decode_attention, q, k_cache, v_cache, lengths,
-                            block_k=block_k, scale=scale, use_kernel=use_kernel)
+                            block_k=block_k, scale=scale, use_kernel=use_kernel,
+                            partials=partials)
     if _resolve(use_kernel, q):
-        return _dec.decode_attention(q, k_cache, v_cache, lengths, block_k=block_k,
-                                     scale=scale)
-    return _ref.decode_attention(q, k_cache, v_cache, lengths, block_k=block_k,
-                                 scale=scale)
+        fn = _dec.decode_attention_partials if partials else _dec.decode_attention
+        return fn(q, k_cache, v_cache, lengths, block_k=block_k, scale=scale)
+    fn = _ref.decode_attention_partials if partials else _ref.decode_attention
+    return fn(q, k_cache, v_cache, lengths, block_k=block_k, scale=scale)
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk=128, initial_state=None, use_kernel="auto"):
+    if is_dtensor(x):
+        from repro_torch.distributed import local
+        return local.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state,
+                              use_kernel=use_kernel)
     if counter is not None and counter.outside():
         return counter.unit(_ssd.NAME, ssd_scan, x, dt, A, Bm, Cm, chunk=chunk,
                             initial_state=initial_state, use_kernel=use_kernel)

@@ -9,6 +9,9 @@
   query token per sequence against a KV cache in one dense masked pass.
   ``decode_attention_split`` computes the same in the CUDA kernel's split-K
   order (per-split partials, then one merge); only the tests use it.
+  ``decode_attention_partials`` returns the one pass's unnormalised
+  partial, as the kernel's ``decode_attention_partials`` returns its
+  splits', for a merge across the shards of a cache split over ranks.
 * ``flash_attention_bwd`` is FlashAttention-2's backward from the
   forward's output and log-sum-exp (``attention_lse``), the plain version
   of K1's backward kernel; ``flash_attention_bwd_bf16`` is the same with
@@ -242,6 +245,29 @@ def decode_attention(
                        v_cache.float())
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, 1, Hq, Dh).to(q.dtype)
+
+
+def decode_attention_partials(q, k_cache, v_cache, lengths, *, scale=None, block_k=1024):
+    """``decode_attention``'s one pass as K2's partials, one split: acc
+    (B, Hq, 1, Dh) unnormalised and (m, l) (B, Hq, 1, 2), fp32, masked
+    positions weighing nothing (at length 0: m = NEG_INF, l = 0, acc = 0,
+    as the kernel writes a split past the length)."""
+    del block_k
+    B, _, Hq, Dh = q.shape
+    L, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    qg = q.reshape(B, 1, Hkv, G, Dh)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg.float(), k_cache.float()) * scale
+    mask = (torch.arange(L, device=q.device)[None, None, None, None, :]
+            < lengths.to(q.device)[:, None, None, None, None])
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bqhgk,bkhd->bqhgd", p.to(v_cache.dtype).float(), v_cache.float())
+    ml = torch.stack([m[..., 0], l], dim=-1)  # (B, 1, Hkv, G, 2)
+    return (acc.reshape(B, Hq, 1, Dh), ml.reshape(B, Hq, 1, 2))
 
 
 def decode_attention_split(

@@ -29,6 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.compat import (
+    gather_fsdp, is_dtensor, reduce_partials, whole, whole_unless_divides,
+)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import decode_attention as decode_attention_ref  # noqa: F401
 from repro_torch.kernels.ref import flash_attention as flash_attention_ref  # noqa: F401
@@ -49,6 +52,11 @@ def pdtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    # a ``DTensor`` residual with its features split over ranks (between
+    # periods) or still a partial sum (a row-parallel product added in) is
+    # made whole first, as sequence parallelism gathers before the
+    # column-parallel projections that read the norm's output
+    x = whole(reduce_partials(x), -1)
     dt = x.dtype
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
@@ -56,10 +64,22 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * scale.float()).to(dt)
 
 
-def _uniform(gen: torch.Generator, shape: Sequence[int], scale: float, dtype,
+def _uniform(gen: Optional[torch.Generator], shape: Sequence[int], scale: float, dtype,
              device) -> torch.Tensor:
+    """Uniform in [-scale, scale) drawn from ``gen``; on ``meta`` nothing is
+    drawn (and ``gen`` may be None)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     x = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     return x.uniform_(-scale, scale, generator=gen).to(dtype)
+
+
+def weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A weight at its use, in ``dtype``. A ``DTensor`` weight split over
+    the data axes (FSDP) is gathered over them here, and stays split over
+    ``model`` (TP): the matmul then needs no other collective, and the
+    gather's backward reduce-scatters the gradient over the data axes."""
+    return gather_fsdp(w).to(dtype)
 
 
 def dense_init(gen, d_in: int, d_out: int, dtype, device, lead=()) -> torch.Tensor:
@@ -141,10 +161,11 @@ def _project(cfg: ModelConfig, p: dict, x: torch.Tensor, name: str, heads: int):
     """One of the q/k/v projections: (B, S, D) -> (B, S, heads, Dh), with the
     bias and (q and k only) the qk-norm where the config has them."""
     ct = cdtype(cfg)
-    y = x.to(ct) @ p[f"w{name}"].to(ct)
+    y = x.to(ct) @ weight(p[f"w{name}"], ct)
     if cfg.qkv_bias:
         y = y + p[f"b{name}"].to(ct)
-    y = y.reshape(x.shape[0], x.shape[1], heads, cfg.head_dim)
+    # sharded over more ranks than it has heads: the projection is gathered
+    y = whole_unless_divides(y, -1, heads).reshape(x.shape[0], x.shape[1], heads, cfg.head_dim)
     if cfg.qk_norm and name != "v":
         y = rms_norm(y, p[f"{name}_norm"], cfg.rmsnorm_eps)
     return y
@@ -187,8 +208,21 @@ def attention_forward(
 def _out_proj(cfg: ModelConfig, p: dict, out: torch.Tensor) -> torch.Tensor:
     B, S = out.shape[:2]
     ct = cdtype(cfg)
-    flat = out.reshape(B, S, cfg.num_heads * cfg.head_dim).to(ct)
-    return flat @ p["wo"].to(ct)
+    flat = _merge_heads(out, (B, S, cfg.num_heads * cfg.head_dim)).to(ct)
+    return flat @ weight(p["wo"], ct)
+
+
+def _merge_heads(out: torch.Tensor, shape) -> torch.Tensor:
+    """(B, S, H, Dh) -> (B, S, H * Dh). A ``DTensor`` whose heads are
+    whole on every rank (they do not divide by the model axis) is
+    reshaped rank by rank, so that the gradient coming back, split over
+    ``model`` by the output projection, is gathered whole before it is cut
+    into heads again (``DTensor`` cannot split a sharded dim into heads
+    that do not divide)."""
+    if is_dtensor(out) and not any(pl.is_shard(2) for pl in out.placements):
+        from repro_torch.distributed import local
+        return local.reshape_rows(out, shape)
+    return out.reshape(shape)
 
 
 def cross_attention_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, enc: torch.Tensor,
@@ -242,13 +276,18 @@ def attention_decode(
         pos_rope = positions[:, None]
     q, k, v = _project_qkv(cfg, p, x, x)
     q, k = _rope_qk(cfg, q, k, pos_rope)
-    bidx = torch.arange(B, device=x.device)
-    L = k_cache.shape[1]
-    pos = positions.long()
-    keep = (pos < L)[:, None, None]
-    pos = pos.clamp(max=L - 1)
-    k_cache[bidx, pos] = torch.where(keep, k[:, 0].to(k_cache.dtype), k_cache[bidx, pos])
-    v_cache[bidx, pos] = torch.where(keep, v[:, 0].to(v_cache.dtype), v_cache[bidx, pos])
+    if is_dtensor(k_cache):  # each rank writes the rows of its shard
+        from repro_torch.distributed import local
+        local.write_positions(k_cache, positions, k[:, 0])
+        local.write_positions(v_cache, positions, v[:, 0])
+    else:
+        bidx = torch.arange(B, device=x.device)
+        L = k_cache.shape[1]
+        pos = positions.long()
+        keep = (pos < L)[:, None, None]
+        pos = pos.clamp(max=L - 1)
+        k_cache[bidx, pos] = torch.where(keep, k[:, 0].to(k_cache.dtype), k_cache[bidx, pos])
+        v_cache[bidx, pos] = torch.where(keep, v[:, 0].to(v_cache.dtype), v_cache[bidx, pos])
     lengths = (positions + 1).to(torch.int32)
     out = ops.decode_attention(q, k_cache, v_cache, lengths)
     return _out_proj(cfg, p, out), k_cache, v_cache
@@ -273,10 +312,10 @@ def init_mlp(cfg: ModelConfig, gen, device, d_ff: Optional[int] = None, lead=())
 def mlp_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     ct = cdtype(cfg)
     x = x.to(ct)
-    g = x @ p["wg"].to(ct)
-    u = x @ p["wu"].to(ct)
+    g = x @ weight(p["wg"], ct)
+    u = x @ weight(p["wu"], ct)
     h = F.silu(g.float()).to(ct) * u
-    return h @ p["wd"].to(ct)
+    return h @ weight(p["wd"], ct)
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +342,7 @@ def moe_route(cfg: ModelConfig, p: dict, x: torch.Tensor):
     renormalised gates (B,S,K), chosen experts (B,S,K) int64). Ties go to
     the lower expert index, as ``lax.top_k`` breaks them (``torch.topk``
     does not promise an order): a stable descending sort, cut at K."""
-    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+    probs = torch.softmax(x.float() @ weight(p["router"], torch.float32), dim=-1)
     gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     K = cfg.experts_per_token
     gate_vals, gate_idx = gate_vals[..., :K], gate_idx[..., :K]
@@ -352,10 +391,10 @@ def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                            cap_onehot)
 
     xin = torch.einsum("bsec,bsd->ebcd", dispatch, x.to(ct))
-    g = torch.einsum("ebcd,edf->ebcf", xin, p["wg"].to(ct))
-    u = torch.einsum("ebcd,edf->ebcf", xin, p["wu"].to(ct))
+    g = torch.einsum("ebcd,edf->ebcf", xin, weight(p["wg"], ct))
+    u = torch.einsum("ebcd,edf->ebcf", xin, weight(p["wu"], ct))
     h = F.silu(g.float()).to(ct) * u
-    eout = torch.einsum("ebcf,efd->ebcd", h, p["wd"].to(ct))
+    eout = torch.einsum("ebcf,efd->ebcd", h, weight(p["wd"], ct))
     y = torch.einsum("bsec,ebcd->bsd", combine, eout)
 
     if cfg.moe_shared_expert:
@@ -383,13 +422,17 @@ def init_embed(cfg: ModelConfig, gen, device) -> dict:
 
 def embed(cfg: ModelConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
     """tokens: (B, S) int32 or int64."""
-    return F.embedding(tokens, p["embedding"]).to(cdtype(cfg))
+    table = p["embedding"]
+    if is_dtensor(table):  # each rank looks up the rows it holds
+        from repro_torch.distributed import local
+        return local.embedding(tokens, table).to(cdtype(cfg))
+    return F.embedding(tokens, table).to(cdtype(cfg))
 
 
 def unembed(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     ct = cdtype(cfg)
     if cfg.tie_embeddings:
-        w = p["embedding"].to(ct).T
+        w = weight(p["embedding"], ct).T
     else:
-        w = p["lm_head"].to(ct)
+        w = weight(p["lm_head"], ct)
     return (x.to(ct) @ w).float()

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_scan as ssd_chunked_ref  # noqa: F401
-from repro_torch.models.layers import _uniform, cdtype, dense_init, pdtype, rms_norm
+from repro_torch.models.layers import _uniform, cdtype, dense_init, pdtype, rms_norm, weight
 
 
 def ssd_step_ref(
@@ -99,8 +99,10 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     fp32 accumulation as the JAX version."""
     W = w.shape[0]
     S = x.shape[1]
-    xp = F.pad(x, (0, 0, W - 1, 0))
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    # x behind W - 1 zero rows (F.pad's values; torch 2.11's DTensor gives
+    # constant_pad_nd a one-dim placement, which breaks on a 2-D mesh)
+    xp = torch.cat([torch.zeros_like(x[:, :1]).expand(-1, W - 1, -1), x], dim=1)
+    out = torch.zeros_like(x, dtype=torch.float32, memory_format=torch.contiguous_format)
     for i in range(W):  # W = 4: tiny static unroll
         out = out + xp[:, i:i + S].float() * w[i].float()
     return F.silu(out + b.float()).to(x.dtype)
@@ -126,7 +128,7 @@ def mamba_forward(
             f"{cfg.ssm_conv - 1} rows (ssm_conv - 1)")
     di, ns, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
     ct = cdtype(cfg)
-    zxbcdt = xin.to(ct) @ p["in_proj"].to(ct)
+    zxbcdt = xin.to(ct) @ weight(p["in_proj"], ct)
     z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
     conv_tail = xbc[:, S - (cfg.ssm_conv - 1):]  # pre-conv tail -> decode conv state
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
@@ -140,7 +142,7 @@ def mamba_forward(
     y = y.reshape(B, S, di)
     # gated RMSNorm (mamba2): norm(y * silu(z))
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg.rmsnorm_eps)
-    out = y.to(ct) @ p["out_proj"].to(ct)
+    out = y.to(ct) @ weight(p["out_proj"], ct)
     if return_state:
         return out, final_state, conv_tail
     return out
@@ -158,7 +160,7 @@ def mamba_decode(
     B = xin.shape[0]
     di, ns, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
     ct = cdtype(cfg)
-    zxbcdt = xin[:, 0].to(ct) @ p["in_proj"].to(ct)
+    zxbcdt = xin[:, 0].to(ct) @ weight(p["in_proj"], ct)
     z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
     # roll conv state, apply conv at last position
     full = torch.cat([conv_state, xbc[:, None, :]], dim=1)  # (B, W, C)
@@ -173,5 +175,5 @@ def mamba_decode(
     y = y + xh * p["D"][:, None].float()
     y = y.reshape(B, di)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg.rmsnorm_eps)
-    out = y.to(ct) @ p["out_proj"].to(ct)
+    out = y.to(ct) @ weight(p["out_proj"], ct)
     return out[:, None, :], new_ssm, new_conv_state

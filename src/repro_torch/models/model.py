@@ -14,8 +14,11 @@ stacks its gradient in one allocation. Rematerialisation follows
 while a gradient is being taken: ``nothing_saveable`` keeps each period's
 input alone and recomputes the rest in the backward, ``dots_saveable``
 also keeps the matrix products' outputs, ``none`` keeps everything.
-Serving (no gradient) runs the plain loop. Activation sharding
-(``constrain``) does nothing on one device and is not carried over.
+Serving (no gradient) runs the plain loop. As the JAX model does, the
+residual is constrained after every period (``constrain(h, "residual")``,
+under remat too): on ``DTensor``s it is redistributed to the cell's
+activation policy (``distributed.act_sharding``); with no policy, or on a
+plain tensor, it is the identity.
 
 The JAX cache is immutable and every step returns a new one; here
 ``prefill`` and ``decode_step`` write into the ``[period]`` views of the
@@ -34,6 +37,8 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig, SublayerSpec
 from repro_torch.data.database import resolve_device
+from repro_torch.distributed.act_sharding import constrain, placed_like
+from repro_torch.distributed.compat import is_dtensor
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 
@@ -83,7 +88,8 @@ def _init_stack(cfg: ModelConfig, gen, device, depth: int, specs, *, cross: bool
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> Params:
     """Uniform ±1/√d_in weights, ±0.02 embedding, zero biases, unit norms,
     the Mamba2 constants, an fp32 router (the JAX init scheme), drawn from
-    ``generator`` on ``device``."""
+    ``generator`` on ``device`` (on ``meta``: shapes only, see
+    ``param_shapes``)."""
     device = resolve_device(device)
     dt = L.pdtype(cfg)
     params: Params = {"embed": L.init_embed(cfg, generator, device)}
@@ -95,6 +101,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> 
                                            ENC_SPEC, cross=False)
         params["enc_final_norm"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
     return params
+
+
+def param_shapes(cfg: ModelConfig) -> Params:
+    """The parameter tree on the ``meta`` device: every leaf's shape and
+    dtype, nothing drawn and nothing allocated (the JAX package's
+    ``jax.eval_shape(init_params)``). A 400B model's tree is laid out on a
+    mesh this way (``launch.cells``)."""
+    return init_params(cfg, None, "meta")
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +134,12 @@ def _depth(tree) -> int:
     return tree.shape[0]
 
 
+def _add(h: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The residual sum h + y in h's dtype; a sharded ``y`` is placed as
+    ``h`` first (``act_sharding.placed_like``)."""
+    return h + placed_like(y, h).to(h.dtype)
+
+
 def _ffn(cfg: ModelConfig, spec: SublayerSpec, p: dict, h: torch.Tensor, *,
          capacity_factor: Optional[float] = None):
     """The FFN half of a sublayer: (h, its MoE aux loss or 0.0)."""
@@ -127,9 +147,9 @@ def _ffn(cfg: ModelConfig, spec: SublayerSpec, p: dict, h: torch.Tensor, *,
         return h, 0.0
     x2 = L.rms_norm(h, p["norm2"], cfg.rmsnorm_eps)
     if spec.ffn == "dense":
-        return h + L.mlp_forward(cfg, p["ffn"], x2).to(h.dtype), 0.0
+        return _add(h, L.mlp_forward(cfg, p["ffn"], x2)), 0.0
     f, aux = L.moe_forward(cfg, p["ffn"], x2, capacity_factor=capacity_factor)
-    return h + f.to(h.dtype), aux
+    return _add(h, f), aux
 
 
 def _apply_sublayer_full(cfg: ModelConfig, spec: SublayerSpec, p: dict,
@@ -144,9 +164,14 @@ def _apply_sublayer_full(cfg: ModelConfig, spec: SublayerSpec, p: dict,
         if cache is not None:
             y, (k, v) = L.attention_forward(cfg, p["mixer"], x, positions,
                                             causal=causal, return_kv=True)
-            S = k.shape[1]
-            cache["k"][:, :S] = k.to(cache["k"].dtype)
-            cache["v"][:, :S] = v.to(cache["v"].dtype)
+            if is_dtensor(cache["k"]):  # each rank writes the rows of its shard
+                from repro_torch.distributed import local
+                local.write_rows(cache["k"], k)
+                local.write_rows(cache["v"], v)
+            else:
+                S = k.shape[1]
+                cache["k"][:, :S] = k.to(cache["k"].dtype)
+                cache["v"][:, :S] = v.to(cache["v"].dtype)
         else:
             y = L.attention_forward(cfg, p["mixer"], x, positions, causal=causal)
     else:
@@ -156,7 +181,7 @@ def _apply_sublayer_full(cfg: ModelConfig, spec: SublayerSpec, p: dict,
             cache["conv"].copy_(conv_tail)
         else:
             y = M.mamba_forward(cfg, p["mixer"], x)
-    h = h + y.to(h.dtype)
+    h = _add(h, y)
     if "cross" in p and enc is not None:
         xc = L.rms_norm(h, p["norm_cross"], cfg.rmsnorm_eps)
         if cache is not None:
@@ -165,7 +190,7 @@ def _apply_sublayer_full(cfg: ModelConfig, spec: SublayerSpec, p: dict,
             cache["cv"].copy_(cv)
         else:
             yc = L.cross_attention_forward(cfg, p["cross"], xc, enc)
-        h = h + yc.to(h.dtype)
+        h = _add(h, yc)
     return _ffn(cfg, spec, p, h)
 
 
@@ -182,11 +207,10 @@ def _apply_sublayer_step(cfg: ModelConfig, spec: SublayerSpec, p: dict,
         y, ns, ncv = M.mamba_decode(cfg, p["mixer"], x, cache["ssm"], cache["conv"])
         cache["ssm"].copy_(ns)
         cache["conv"].copy_(ncv)
-    h = h + y.to(h.dtype)
+    h = _add(h, y)
     if "cross" in p:
         xc = L.rms_norm(h, p["norm_cross"], cfg.rmsnorm_eps)
-        h = h + L.cross_attention_decode(cfg, p["cross"], xc, cache["ck"],
-                                         cache["cv"]).to(h.dtype)
+        h = _add(h, L.cross_attention_decode(cfg, p["cross"], xc, cache["ck"], cache["cv"]))
     if spec.ffn == "moe":  # the B new tokens are routed as one row of B
         B = h.shape[0]
         out, _ = _ffn(cfg, spec, p, h.reshape(1, B, -1),
@@ -255,6 +279,7 @@ def _run_stack_full(cfg: ModelConfig, stack_params: dict, specs, h, *,
             h, a = _apply_period_full(cfg, specs, pp, h, **kw)
         else:
             h, a = remat(_apply_period_full, cfg, specs, pp, h, **kw)
+        h = constrain(h, "residual")
         aux = aux + a
     if not torch.is_tensor(aux):
         aux = torch.zeros((), dtype=torch.float32, device=h.device)

@@ -7,6 +7,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.compat import is_dtensor
 from repro_torch.models import forward
 
 
@@ -29,7 +30,11 @@ def lm_loss(
             if mask is None else mask[:, 1:].to(torch.float32))
 
     lse = torch.logsumexp(logits, dim=-1)  # (B,S-1)
-    tgt_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
+    if is_dtensor(logits):  # vocab-sharded: each rank gathers the targets it holds
+        from repro_torch.distributed import local
+        tgt_logit = local.target_logits(logits, targets)
+    else:
+        tgt_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
     ce = lse - tgt_logit
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = (ce * mask).sum() / denom

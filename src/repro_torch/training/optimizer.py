@@ -19,8 +19,10 @@ from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as T
+from repro_torch.distributed.compat import is_dtensor, reduce_partials
 
 STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -52,7 +54,8 @@ def lr_at(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 
 def adamw_init(cfg: OptimizerConfig, params) -> Dict[str, Any]:
     dt = STATE_DTYPES[cfg.state_dtype]
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
+    # zeros_like: a DTensor parameter gets moments placed as it is
+    zeros = lambda p: torch.zeros_like(p, dtype=dt, memory_format=torch.contiguous_format)  # noqa: E731
     first = T.leaves(params)[0]
     return {
         "m": T.tree_map(zeros, params),
@@ -62,10 +65,37 @@ def adamw_init(cfg: OptimizerConfig, params) -> Dict[str, Any]:
 
 
 def global_norm(tree) -> torch.Tensor:
+    """The L2 norm of every leaf together, a 0-d fp32 tensor. For sharded
+    leaves (``DTensor``s) each rank sums the squares of its own shard (a
+    partial-sum gradient reduced first; a shard held by several ranks
+    counted by one of them) and one all-reduce over the mesh adds the
+    ranks' sums, so the norm, and the clip, are the one-rank norm's."""
     total = 0
+    mesh = None
     for x in T.leaves(tree):
+        if is_dtensor(x):
+            mesh = x.device_mesh
+            x = _owned_shard(x)
         total = total + torch.sum(torch.square(x.to(torch.float32)))
+    if mesh is not None:
+        import torch.distributed._functional_collectives as funcol
+
+        # the mesh spans the default group (every mesh of the port does)
+        group = mesh.get_group() if mesh.ndim == 1 else dist.group.WORLD
+        total = funcol.all_reduce(total, "sum", group)
     return torch.sqrt(total)
+
+
+def _owned_shard(x) -> torch.Tensor:
+    """A ``DTensor``'s local shard if this rank is the first of those that
+    hold it (coordinate 0 on every mesh dim it is replicated over), else
+    an empty tensor; a partial sum is reduced first."""
+    x = reduce_partials(x)
+    coord = x.device_mesh.get_coordinate()
+    local = x.to_local()
+    if any(pl.is_replicate() and c != 0 for pl, c in zip(x.placements, coord)):
+        return local[:0] if local.dim() else local.reshape(1)[:0]
+    return local
 
 
 @torch.no_grad()
@@ -110,5 +140,9 @@ def adamw_update(
         c2 = 1 - b2 ** step.to(torch.float32)
         for p, g, m, v in zip(T.leaves(params), T.leaves(grads), T.leaves(opt_state["m"]),
                               T.leaves(opt_state["v"])):
+            if is_dtensor(g) and g.placements != p.placements:
+                # a sharded parameter's gradient, placed as the parameter
+                # (FSDP: the reduce-scatter of a partial gradient)
+                g = g.redistribute(p.device_mesh, p.placements)
             _update_leaf(cfg, p, g, m, v, scale=scale, lr=lr, c1=c1, c2=c2)
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

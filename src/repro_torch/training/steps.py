@@ -24,6 +24,7 @@ import torch.distributed as dist
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.database import resolve_device
+from repro_torch.distributed.compat import is_dtensor
 from repro_torch.training import compression
 from repro_torch.training.loss import lm_loss
 from repro_torch.training.optimizer import OptimizerConfig, adamw_init, adamw_update
@@ -64,6 +65,9 @@ def _split(x: torch.Tensor, B: int, microbatches: int, i: int) -> torch.Tensor:
     masks; axis 1 for (3, B, S) M-RoPE position ids), as the JAX ``split``
     cuts it."""
     ax = 0 if x.shape[0] == B else next(a for a, d in enumerate(x.shape) if d == B)
+    if is_dtensor(x):  # each rank cuts its own rows (distributed.local)
+        from repro_torch.distributed import local
+        return local.narrow_batch(x, ax, microbatches, i)
     n = B // microbatches
     return x.narrow(ax, i * n, n)
 
@@ -82,7 +86,8 @@ def make_train_step(
             metrics, grads = _value_and_grad(cfg, params, batch)
         else:
             B = batch["tokens"].shape[0]
-            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            gsum = [torch.zeros_like(p, dtype=torch.float32,
+                                     memory_format=torch.contiguous_format)
                     for p in T.leaves(params)]
             msum = None
             for i in range(microbatches):

@@ -1,0 +1,309 @@
+"""The port's cells (``repro_torch.launch.cells``) and dry-run
+(``repro_torch.launch.dryrun``) against the JAX package's: every cell's
+facts and skip reasons; the reduced qwen2.5-3b and mamba2-780m train,
+prefill and decode cells on a one-rank gloo mesh against the JAX steps on
+the same weights; the same cells on two gloo ranks, (data, model) = (1, 2)
+and (2, 1), against the one-rank run; one production cell's dry-run on a
+256-rank fake group, and a skipped cell."""
+import json
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import torch.distributed as dist  # noqa: E402
+
+from repro.configs import ARCHS as REF_ARCHS  # noqa: E402
+from repro.distributed import rules as jrules  # noqa: E402
+from repro.launch.cells import build_cell as jax_build_cell  # noqa: E402
+from repro.launch.mesh import make_host_mesh as jax_host_mesh  # noqa: E402
+from repro.models import init_cache as jax_init_cache  # noqa: E402
+from repro.models import init_params as jax_init_params  # noqa: E402
+from repro.serving import engine as jax_engine  # noqa: E402
+from repro.training import optimizer as jax_opt  # noqa: E402
+from repro.training import steps as jax_steps  # noqa: E402
+from repro_torch.analysis.roofline import HBM_BW, HBM_BYTES, LINK_BW, PEAK_FLOPS  # noqa: E402
+from repro_torch.configs import ARCHS, SHAPES, ShapeConfig  # noqa: E402
+from repro_torch.launch import cells, dryrun  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.serving import greedy_sample  # noqa: E402
+from repro_torch.training import optimizer  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+ENV = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"}
+CELL_ARCHS = ["qwen2.5-3b", "mamba2-780m"]
+# tests/test_kernels.py: attention 3e-5, the SSD scan 1e-3
+TOL = {"qwen2.5-3b": 3e-5, "mamba2-780m": 1e-3}
+B, S, SP = 2, 12, 8  # batch, decode cache length, prompt
+
+
+@pytest.fixture(scope="module")
+def mesh(tmp_path_factory):
+    """A 1 x 1 (data, model) mesh over a one-rank gloo group."""
+    path = tmp_path_factory.mktemp("pg") / "store"
+    dist.init_process_group("gloo", init_method=f"file://{path}", rank=0, world_size=1)
+    try:
+        yield make_host_mesh(1, 1, device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _tokens(cfg, seed, batch=B, seq=S):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (batch, seq),
+                                                dtype=np.int32)
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_cell_meta_and_skips_match_jax(arch, mesh):
+    """Every shape: the same skip reason, or the same facts (mode, tokens a
+    step, activation policy, optimizer state dtype, microbatches) as the
+    JAX ``build_cell`` on its one-device host mesh; ZeRO decode by the JAX
+    rule at the port's memory size (the JAX default is a TPU v5e's)."""
+    jmesh = jax_host_mesh()
+    for shape in SHAPES:
+        try:
+            jmeta, jerr = jax_build_cell(arch, shape, jmesh)[2], None
+        except ValueError as e:
+            jmeta, jerr = None, str(e)
+        try:
+            meta, err = cells.build_cell(arch, shape, mesh)[2], None
+        except ValueError as e:
+            meta, err = None, str(e)
+        assert err == jerr, (arch, shape)
+        if jerr:
+            continue
+        assert set(meta) == set(jmeta), (arch, shape)
+        for k, want in jmeta.items():
+            if k == "policy":
+                assert {n: tuple(v) for n, v in meta[k].items()} == \
+                    {n: tuple(v) for n, v in want.items()}, (arch, shape)
+            elif k == "zero_shard_decode":
+                # the JAX rule at the port's capacity (one H100, not a v5e)
+                assert meta[k] == jrules.needs_zero_decode(
+                    REF_ARCHS[arch], jmesh, hbm_bytes=HBM_BYTES), (arch, shape)
+            else:
+                assert meta[k] == want, (arch, shape, k)
+
+
+def test_build_cell_places_meta_shards(mesh):
+    """The cell's inputs are DTensors of meta tensors: nothing allocated."""
+    step, (state, batch), meta = cells.build_cell("llama4-maverick-400b-a17b", "train_4k",
+                                                  mesh)
+    leaves = [*cells.T.leaves(state), *batch.values()]
+    assert all(cells.is_dtensor(t) and t.to_local().is_meta for t in leaves)
+    assert cells.local_bytes(state) > 1e12  # 400B params and bf16 moments, one rank
+    assert meta["microbatches"] == 4 and meta["opt_state_dtype"] == "bfloat16"
+
+
+@pytest.mark.parametrize("arch", CELL_ARCHS)
+def test_reduced_train_cell_matches_jax(arch, mesh):
+    """Three steps of the train cell from the JAX weights on the JAX
+    batches: loss, grad norm, total loss and tokens within 1e-5
+    (tests/test_torch_training.py's bound)."""
+    ref_cfg, cfg = REF_ARCHS[arch].reduced(), ARCHS[arch].reduced()
+    kw = dict(lr=1e-2, warmup_steps=1, total_steps=10, min_lr_ratio=1.0)
+    jcfg, pcfg = jax_opt.OptimizerConfig(**kw), optimizer.OptimizerConfig(**kw)
+    jstate = jax_steps.init_train_state(ref_cfg, jcfg, jax.random.PRNGKey(0))
+    params = params_from_numpy(_np(jstate["params"]), "cpu")
+    state = {"params": params, "opt": optimizer.adamw_init(pcfg, params)}
+    jstep = jax.jit(jax_steps.make_train_step(ref_cfg, jcfg))
+    step, (cstate, _), meta = cells._build_train(
+        cfg, ShapeConfig("t", "train", 16, 4), mesh, cells.CellTuning(), state=state,
+        opt_cfg=pcfg)
+    assert meta["mode"] == "train" and meta["tokens_per_step"] == 64
+    for i in range(3):
+        toks = _tokens(cfg, 10 + i, batch=4, seq=16)
+        jstate, jm = jstep(jstate, {"tokens": jnp.asarray(toks)})
+        cstate, m = step(cstate, cells.place_batch(cfg, mesh, {"tokens": torch.from_numpy(toks)},
+                                                   "train"))
+        for k in ("loss", "grad_norm", "total_loss", "tokens"):
+            np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("arch", CELL_ARCHS)
+def test_reduced_serving_cells_match_jax(arch, mesh):
+    """The prefill cell's logits, then the decode cell (its cache filled by
+    the prefill step) for S - SP greedy steps, against the JAX steps on the
+    same weights: 3e-5 for attention, 1e-3 for the SSD path."""
+    ref_cfg, cfg = REF_ARCHS[arch].reduced(), ARCHS[arch].reduced()
+    jparams = jax_init_params(ref_cfg, jax.random.PRNGKey(1))
+    params = params_from_numpy(_np(jparams), "cpu")
+    prompt = _tokens(cfg, 2)[:, :SP]
+    jlg, jcache = jax_engine.make_prefill_step(ref_cfg)(
+        jparams, {"tokens": jnp.asarray(prompt)}, jax_init_cache(ref_cfg, B, S))
+    tune = cells.CellTuning()
+    pstep, (pparams, _, pcache), _ = cells._build_prefill(
+        cfg, ShapeConfig("p", "prefill", SP, B), mesh, tune, params=params)
+    dstep, (dparams, _, _, dcache), dmeta = cells._build_decode(
+        cfg, ShapeConfig("d", "decode", S, B), mesh, tune, params=params)
+    assert dmeta["zero_shard_decode"] is False
+    batch = cells.place_batch(cfg, mesh, {"tokens": torch.from_numpy(prompt)}, "prefill")
+    with torch.no_grad():
+        lg, _ = pstep(pparams, batch, pcache)
+        np.testing.assert_allclose(lg.full_tensor().numpy(), np.asarray(jlg),
+                                   atol=TOL[arch], rtol=TOL[arch])
+        pstep(dparams, batch, dcache)
+        jdec = jax_engine.make_decode_step(ref_cfg)
+        for t in range(SP, S):
+            nxt = greedy_sample(lg.full_tensor())
+            jnxt = jax_engine.greedy_sample(jlg)
+            np.testing.assert_array_equal(nxt.numpy(), np.asarray(jnxt))
+            ins = cells.place_batch(cfg, mesh, {
+                "tokens": nxt[:, None], "positions": torch.full((B,), t, dtype=torch.int32)},
+                "decode")
+            lg, _ = dstep(dparams, ins["tokens"], ins["positions"], dcache)
+            jlg, jcache = jdec(jparams, jnxt[:, None], jnp.full((B,), t, jnp.int32), jcache)
+            np.testing.assert_allclose(lg.full_tensor().numpy(), np.asarray(jlg),
+                                       atol=TOL[arch], rtol=TOL[arch])
+
+
+_RANKS = textwrap.dedent("""
+    import json, sys
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.serving import greedy_sample
+    from repro_torch.training import optimizer, steps
+    rank, path, data, model = int(sys.argv[1]), sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+    dist.init_process_group("gloo", init_method="file://" + path, rank=rank, world_size=2)
+    mesh = make_host_mesh(data, model, device_type="cpu")
+    # a small clip, so that every step clips by the global norm
+    ocfg = optimizer.OptimizerConfig(lr=1e-2, warmup_steps=1, total_steps=10, clip_norm=0.5)
+    out = {}
+
+    def toks(cfg, seed, b, s):
+        return torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (b, s), dtype=np.int32))
+
+    def train(name, cfg):
+        def state():
+            p = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+            return {"params": p, "opt": optimizer.adamw_init(ocfg, p)}
+        one, st = steps.make_train_step(cfg, ocfg), state()
+        step, (cst, _), _ = cells._build_train(cfg, ShapeConfig("t", "train", 16, 4), mesh,
+                                               cells.CellTuning(), state=state(), opt_cfg=ocfg)
+        got, want = [], []
+        for i in range(2):
+            b = {"tokens": toks(cfg, 10 + i, 4, 16)}
+            st, m = one(st, b)
+            cst, cm = step(cst, cells.place_batch(cfg, mesh, b, "train"))
+            want += [float(m["loss"]), float(m["grad_norm"])]
+            got += [float(cm["loss"]), float(cm["grad_norm"])]
+        out[name] = [got, want]
+
+    def serve(name, cfg, L=12, SP=8, B=2):
+        params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+        prompt = toks(cfg, 2, B, SP)
+        with torch.no_grad():
+            cache = init_cache(cfg, B, L, device="cpu")
+            lg, _, _ = prefill(cfg, params, {"tokens": prompt}, cache)
+            want, fed = [lg], []
+            for t in range(SP, L):
+                fed.append(greedy_sample(want[-1])[:, None])
+                want.append(decode_step(cfg, params, fed[-1], torch.full((B,), t, dtype=torch.int32),
+                                        cache)[0])
+            tune = cells.CellTuning()
+            pstep, (pp, _, pc), _ = cells._build_prefill(
+                cfg, ShapeConfig("p", "prefill", SP, B), mesh, tune, params=params)
+            dstep, (dp, _, _, dc), _ = cells._build_decode(
+                cfg, ShapeConfig("d", "decode", L, B), mesh, tune, params=params)
+            batch = cells.place_batch(cfg, mesh, {"tokens": prompt}, "prefill")
+            got = [pstep(pp, batch, pc)[0].full_tensor()]
+            pstep(dp, batch, dc)
+            for i, t in enumerate(range(SP, L)):
+                ins = cells.place_batch(cfg, mesh, {
+                    "tokens": fed[i], "positions": torch.full((B,), t, dtype=torch.int32)},
+                    "decode")
+                got.append(dstep(dp, ins["tokens"], ins["positions"], dc)[0].full_tensor())
+        out[name] = [max(float((a - b).abs().max()) for a, b in zip(got, want)),
+                     max(float(b.abs().max()) for b in want)]
+
+    qwen = ARCHS["qwen2.5-3b"].reduced()
+    # one KV head for 4 query heads: at model = 2 the k/v projections stay
+    # whole on each rank and each rank's attention takes the KV head of its
+    # own query heads
+    train("qwen_mqa_train", qwen.reduced(num_kv_heads=1))
+    # 3 heads at model = 2: the heads do not divide, so attention runs them
+    # whole on each rank (the projection gathered, its gradient too)
+    train("qwen_odd_heads_train", qwen.reduced(num_heads=3, num_kv_heads=1))
+    serve("qwen_decode", qwen)
+    train("mamba_train", ARCHS["mamba2-780m"].reduced())
+    dist.destroy_process_group()
+    if rank == 0:
+        print(json.dumps(out))
+""")
+
+
+@pytest.mark.parametrize("layout", [(1, 2), (2, 1)], ids=["model2", "data2"])
+def test_two_ranks_match_one_rank(layout, tmp_path):
+    """Two gloo processes on (data, model) = layout: the reduced qwen2.5-3b
+    train cell with one KV head (at model = 2, the GQA mapping under TP)
+    and with 3 query heads (heads that do not divide by the model axis),
+    the reduced qwen2.5-3b prefill and decode cells (a cache split along the sequence at model =
+    2: K2's partials merged across ranks) and the reduced mamba2-780m train
+    cell (SSD heads over model), each against the plain one-rank steps in
+    the same process: losses and grad norms (so the clip, 0.5, which every
+    step hits) within 1e-5, the logits within 1e-5 of their largest."""
+    data, model = layout
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANKS, str(r), str(tmp_path / "pg"), str(data), str(model)],
+        env=ENV, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=240)
+        assert p.returncode == 0, out[-2000:] + err[-4000:]
+        outs.append(out)
+    res = json.loads(outs[0].strip().splitlines()[-1])
+    for name in ("qwen_mqa_train", "qwen_odd_heads_train", "mamba_train"):
+        got, want = res[name]
+        np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=name)
+        assert want[1] > 0.5  # the first step's norm: the clip is hit
+    err, scale = res["qwen_decode"]
+    assert err <= 1e-5 * max(1.0, scale), res["qwen_decode"]
+
+
+def test_dryrun_cell_on_a_fake_group():
+    """qwen2.5-3b x decode_32k on the 16x16 production mesh, 256 fake ranks,
+    no device, in a subprocess: the JAX record's keys (trace_s for lower_s
+    and compile_s), per-rank work, nonzero collective bytes (K2's partials
+    merged across the cache's sequence shards), the roofline at the H100's
+    rates."""
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                          "qwen2.5-3b", "--shape", "decode_32k"],
+                         env={**ENV, "CUDA_VISIBLE_DEVICES": ""}, capture_output=True,
+                         text=True, timeout=240, cwd=str(ROOT))
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    rec = json.loads(res.stdout[res.stdout.index("{\n"):])
+    assert set(rec) == {"arch", "shape", "mesh", "chips", "status", "mode", "tokens_per_step",
+                        "trace_s", "analysis", "roofline"}
+    assert rec["status"] == "OK" and rec["chips"] == 256 and rec["mode"] == "decode"
+    an, rf = rec["analysis"], rec["roofline"]
+    assert an["collective_bytes"] > 0 and an["collectives"]["all-gather"] > 0
+    assert an["by_kernel"]["decode_attention"]["calls"] == 36
+    mem = an["memory"]
+    assert mem["argument_bytes"] > 0 and mem["temp_bytes"] is None
+    assert rf["compute_s"] == pytest.approx(an["flops"] / PEAK_FLOPS[torch.bfloat16])
+    assert rf["memory_s"] == pytest.approx(an["hbm_bytes"] / HBM_BW)
+    assert rf["collective_s"] == pytest.approx(an["collective_bytes"] / LINK_BW)
+
+
+def test_dryrun_skips_long_context_on_full_attention():
+    rec = dryrun.run_cell("qwen2.5-3b", "long_500k", multi_pod=False)
+    assert rec == {"arch": "qwen2.5-3b", "shape": "long_500k", "mesh": "16x16", "chips": 256,
+                   "status": "SKIP", "reason": "long_500k needs sub-quadratic attention; "
+                                               "pure full-attention arch"}

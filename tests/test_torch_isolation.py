@@ -31,7 +31,10 @@ def _imported_modules(path: Path):
 def test_sources_exist():
     assert (PORT / "core" / "runtime.py").exists()
     for path in ("launch/specs.py", "launch/serve.py", "analysis/roofline.py",
-                 "analysis/op_analysis.py"):
+                 "analysis/op_analysis.py", "distributed/__init__.py",
+                 "distributed/act_sharding.py", "distributed/compat.py", "distributed/rules.py",
+                 "distributed/local.py", "launch/mesh.py", "launch/cells.py",
+                 "launch/dryrun.py"):
         assert (PORT / path).exists()
     for name in ("torch_serve_workload", "torch_multistage_demo"):
         assert (ROOT / "examples" / f"{name}.py").exists()
@@ -57,7 +60,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.training, repro_torch.training.compression, "
             "repro_torch.checkpoint, repro_torch.data.pipeline, repro_torch.launch.train, "
             "repro_torch.launch.serve, repro_torch.launch.specs, "
-            "repro_torch.analysis.roofline, repro_torch.analysis.op_analysis; "
+            "repro_torch.analysis.roofline, repro_torch.analysis.op_analysis, "
+            "repro_torch.distributed, repro_torch.distributed.local, "
+            "repro_torch.launch.mesh, repro_torch.launch.cells, repro_torch.launch.dryrun; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
