@@ -118,13 +118,27 @@ Phases, one JSON line each:
                  and one hit (its warm stage, e2e, gpu_ctx, gpu_data): the
                  weights leave the card at stage 2, the context at stage 3,
                  and each hit skips what Table 4 says it skips;
-19. analysis     analysis.op_analysis on qwen2.5-3b: the kernels' reports
+19. control_plane  the cluster control plane on real memory: (a) a 2-node
+                 ClusterRuntime (locality, eviction) serving the full-width
+                 qwen2.5-3b, node A crashed while a request's forward is in
+                 flight, a request evicted to B, A restored, B drained, a
+                 cold request on A: typed outcomes, logits against the
+                 direct forward, >= 90 % of the weights' real bytes freed by
+                 the crash and by the drain, and the time the crash took to
+                 free them; (b) the JAX package's quick chaos scenario,
+                 hardened, on a 4-node gateway over the reduced qwen2.5-3b
+                 (K1) and mamba2-780m (K3): 3 crashes, typed failures, dead
+                 nodes' books at zero; (c) hedging around a slowed node and
+                 a burst of 4 batched by the shared compute plane (K1
+                 launches 4 x a forward's); memory back at its base after
+                 each part;
+20. analysis     analysis.op_analysis on qwen2.5-3b: the kernels' reports
                  against use_kernel=False at depth 2, then the full-width
                  prefill, decode step and train step with their roofline
                  terms beside their device time;
-20. the {"kernels": [...]} line, then the contract's last line.
+21. the {"kernels": [...]} line, then the contract's last line.
 
-(Phases 16-18 run after 8, phase 19 after 15.)
+(Phases 16-19 run after 8, phase 20 after 15.)
 
 Each served path sets every kernel's launch count to 0 just before it runs
 and reads the counts just after. Any failed check exits non-zero before the
@@ -165,14 +179,20 @@ from repro_torch.analysis.roofline import (  # noqa: E402
     HBM_BYTES, PEAK_FLOPS, attention_bound_ms, attention_bwd_bound_ms, decode_bound_ms, model_flops,
     roofline_from_report, ssd_bound_ms, ssd_bwd_bound_ms, train_step_flops,
 )
-from repro_torch.api import FunctionSpec, Gateway, TraceWorkload  # noqa: E402
+from repro_torch.api import (  # noqa: E402
+    Arrival, ChaosWorkload, FunctionSpec, Gateway, PoissonWorkload, TraceWorkload,
+)
 from repro_torch.configs import ARCHS, ShapeConfig  # noqa: E402
-from repro_torch.core import SageRuntime  # noqa: E402
+from repro_torch.core import ClusterRuntime, SageRuntime  # noqa: E402
+from repro_torch.core.faults import (  # noqa: E402
+    BreakerConfig, DbFlap, FaultPlan, LinkDegradation, LoaderFault, NodeCrash, SheddingConfig,
+    SlowNode,
+)
 from repro_torch.core.functions import (  # noqa: E402
     _model_function, make_model_function, make_request,
 )
 from repro_torch.core.profiles import MB  # noqa: E402
-from repro_torch.core.telemetry import STAGES  # noqa: E402
+from repro_torch.core.telemetry import STAGES, classify_error  # noqa: E402
 from repro_torch.data.database import Database  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -1221,6 +1241,379 @@ def phase_exit_ladder():
     check(usage["device_used"] == usage["host_used"] == 0, f"exit ladder teardown {usage}")
     check(after <= base_alloc, f"exit ladder: device memory not freed: {after} > {base_alloc}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the cluster control plane on real memory: crash, drain, chaos, hedging,
+# batching
+# ---------------------------------------------------------------------------
+
+# the chaos scenario of the JAX package's benchmarks/chaos.py (:42-150),
+# word for word: its seed, nodes, breaker, shedding, classes and fault plan
+CHAOS_SEED, CHAOS_NODES, CHAOS_WINDOW_S = 29, 4, 5.0
+CHAOS_BREAKER = BreakerConfig(failure_threshold=0.5, window=16, min_requests=8,
+                              cooldown_s=5.0, half_open_probes=2)
+CHAOS_SHEDDING = SheddingConfig(watermark=0.75, hard_watermark=0.97,
+                                loose_priority_max=0, saturation=8.0)
+CHAOS_CLASSES = {"tight": (6.0, 3.0, 2), "loose": (6.0, 20.0, 0), "flaky": (1.0, None, 0)}
+CHAOS_ARCHS = {"tight": "qwen2.5-3b", "loose": "qwen2.5-3b", "flaky": "mamba2-780m"}
+TYPED_ERRORS = ("node_lost", "shed", "breaker", "hedged", "data_load", "timeout")
+CRASH_AT_LAYER = 12     # crash once K1 has launched for this many of the 36 layers
+HEDGE_SLOW_FACTOR, HEDGE_RATE, HEDGE_WINDOW_S = 30.0, 20.0, 3.0
+
+
+def chaos_plan(duration_s: float, seed: int = CHAOS_SEED) -> FaultPlan:
+    """3 of 4 nodes crash early (gpu1 rejoins near the end), the db link
+    browns out mid-window, gpu0's db flaps at warm-up, and the ``flaky``
+    function's db leg fails half the time."""
+    d = duration_s
+    return FaultPlan([
+        NodeCrash("gpu1", at_s=0.08 * d, restart_after_s=0.87 * d),
+        NodeCrash("gpu2", at_s=0.10 * d),
+        NodeCrash("gpu3", at_s=0.12 * d),
+        LoaderFault("flaky", probability=0.5),
+        LinkDegradation(at_s=0.30 * d, duration_s=0.20 * d, factor=0.5, link="db"),
+        DbFlap(at_s=0.02 * d, duration_s=0.02 * d, node="gpu0"),
+    ], seed=seed)
+
+
+def settle(cond, timeout=30.0) -> bool:
+    deadline = time.monotonic() + timeout
+    while not cond() and time.monotonic() < deadline:
+        time.sleep(0.005)
+    return cond()
+
+
+def outcome(fut, rec) -> dict:
+    """One request's end: served, or the class of its typed error."""
+    exc = fut.exception()
+    return {"node": rec.node_id, "warm_stage": rec.warm_stage, "e2e_ms": ms(rec.e2e),
+            "stages_ms": {k: ms(v) for k, v in rec.stages.items()},
+            "error": rec.error, "error_class": classify_error(rec.error),
+            "raised": None if exc is None else type(exc).__name__}
+
+
+def served_err(db, cfg, rec, weights) -> float:
+    """Max |served logits - the direct forward of the same tokens| on the
+    card (the served output is the last position's first 8 logits)."""
+    toks = db.fetch(f"{rec.function}/in/{rec.request_id}").cuda()
+    with torch.inference_mode():
+        direct = forward(cfg, weights, {"tokens": toks})[0][:, -1, :8].float().cpu().numpy()
+    return float(np.abs(db.fetch(rec.result) - direct).max())
+
+
+def retire(gw) -> list:
+    """Drain every node of a runtime gateway (the exact teardown); returns
+    each node's declared usage after it."""
+    for n in gw._nodes:
+        settle(n.is_idle)
+    return [n.drain() for n in gw._nodes]
+
+
+def control_crash_drain():
+    """Part (a): a 2-node ClusterRuntime (locality, eviction) serving the
+    full-width qwen2.5-3b, one seed-0 host copy of the weights in the
+    nodes' shared database and a device copy per node. A cold and a warm
+    request on A; a third whose forward A's crash lands in (K1 has launched
+    for CRASH_AT_LAYER layers); one that eviction routes to B; A restored,
+    B drained, one that lands cold on A. Real and declared bytes at every
+    step, and the time from the crash until the card's allocated bytes
+    fell by 90 % of the weights. Returns the launches and the report."""
+    cfg = ARCHS["qwen2.5-3b"]
+    base_alloc = freed_memory()[1]
+    db = Database(device="cuda")
+    cluster = ClusterRuntime(n_nodes=2, dispatch="locality", eviction=True, database=db,
+                             time_scale=SERVE_TIME_SCALE, load_timeout_s=120.0,
+                             exit_ttl=600.0, device="cuda")
+    cluster.sage_init()
+    t0 = time.monotonic()
+    fn = _model_function(db, "cp", cfg, batch=FULL_BATCH, seq=FULL_SEQ, seed=0)
+    init_s = time.monotonic() - t0
+    cluster.register_function(lambda i: fn)
+    weights = db.size_of("cp/weights")
+    pcie_s = weights / cluster.nodes[0].paths.pcie.base_bw * SERVE_TIME_SCALE
+    a, b = cluster.nodes
+    layers = cfg.num_attn_layers
+    steps, runs = [], []
+
+    def mem(step):
+        torch.cuda.synchronize()
+        gc.collect()
+        steps.append({"step": step, "allocated": torch.cuda.memory_allocated(),
+                      "A": a.memory_usage(), "B": b.memory_usage()})
+        return steps[-1]["allocated"]
+
+    def request(step, seed):
+        req = make_request(db, fn, batch=FULL_BATCH, seq=FULL_SEQ, vocab=cfg.vocab_size,
+                           seed=seed)
+        return req, cluster.submit(req)
+
+    def finish(step, req, fut):
+        settle(fut.done, 600.0)
+        settle(lambda: a.is_idle() and b.is_idle())
+        rec = cluster.telemetry.find(req.uuid)
+        runs.append({"step": step, **outcome(fut, rec)})
+        return rec
+
+    mem("registered")
+    reset_counts()  # -- the crash-and-drain path starts here
+    t_path = time.monotonic()
+    served = []
+    for step, seed in (("cold_on_A", 0), ("warm_on_A", 1)):
+        rec = finish(step, *request(step, seed))
+        served.append(rec)
+        mem(step)
+
+    # the crash, while the third request's forward is in flight
+    req, fut = request("crash", 2)
+    k1 = fa.launches
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-4)  # let this thread watch the forward's launches closely
+    try:
+        check(settle(lambda: fa.launches - k1 >= CRASH_AT_LAYER or fut.done(), 600.0),
+              "the third request never reached its forward")
+        at_layer = fa.launches - k1
+        done_at_crash = fut.done()
+        pre_crash = torch.cuda.memory_allocated()
+        t_crash = time.monotonic()
+        a.crash("crashed in mid-forward")
+        freed = settle(lambda: pre_crash - torch.cuda.memory_allocated() >= 0.9 * weights)
+        freed_s = time.monotonic() - t_crash
+    finally:
+        sys.setswitchinterval(switch)
+    crashed = finish("crash", req, fut)
+    crash_drop = pre_crash - mem("crash_settled")
+    usage_a = a.memory_usage()
+
+    rec = finish("evicted_to_B", *request("evicted_to_B", 3))
+    served.append(rec)
+    before_drain = mem("evicted_to_B")
+    a.restore()
+    cluster.drain_node(b.node_id)
+    settle(lambda: b.retired)
+    drain_drop = before_drain - mem("B_drained")
+    rec = finish("cold_on_A_again", *request("cold_on_A_again", 4))
+    served.append(rec)
+    rise = mem("cold_on_A_again") - (before_drain - drain_drop)
+    wall_s = time.monotonic() - t_path
+    launches = counts()  # -- and ends here
+    usage = a.drain()
+    cluster.shutdown()
+    after_raw, after = freed_memory()
+
+    on_card = db.to_device(db.fetch("cp/weights"))
+    errs = [served_err(db, cfg, r, on_card) for r in served if r.error is None]
+    if crashed.error is None:
+        errs.append(served_err(db, cfg, crashed, on_card))
+    del on_card, cluster, fn, db
+    final_raw, final = freed_memory()
+    report = {
+        "arch": cfg.name, "weights_bytes": weights, "init_s": init_s, "wall_s": wall_s,
+        "time_scale": SERVE_TIME_SCALE, "modelled_pcie_leg_ms": ms(pcie_s),
+        "requests": runs, "memory": steps,
+        "crash": {"k1_layers_launched": at_layer, "of_layers": layers,
+                  "landed_in": ("forward" if 0 < at_layer < layers else
+                                "setup" if at_layer == 0 else "after the forward's launches"),
+                  "request_done_at_crash": done_at_crash,
+                  "allocated_before": pre_crash, "freed_bytes": crash_drop,
+                  "freed_share_of_weights": crash_drop / weights,
+                  "seconds_to_free_90pct": freed_s if freed else None,
+                  "A_usage_after": usage_a},
+        "drain": {"freed_bytes": drain_drop, "freed_share_of_weights": drain_drop / weights},
+        "cold_on_A_again": {"real_copy_bytes": rise, "gpu_data_ms": runs[-1]["stages_ms"]["gpu_data"]},
+        "direct_max_abs_err": errs, "launches": launches, "usage_after": usage,
+        "memory_allocated_before": base_alloc, "memory_allocated_after_shutdown": after_raw,
+        "memory_allocated_after_cublas_workspaces_cleared": after,
+        "memory_allocated_after_comparisons": final}
+    for r in runs:
+        check(r["error"] is None or r["error_class"] in TYPED_ERRORS,
+              f"control_plane: {r['step']} failed untyped: {r['error']}")
+    check([r["error"] for r in runs if r["step"] != "crash"] == [None] * 4,
+          f"control_plane: a request off the crash failed: {runs}")
+    check(0 < at_layer < layers, f"control_plane: the crash landed after {at_layer} of "
+          f"{layers} layers' K1 launches, not in mid-forward")
+    check(usage_a == dict.fromkeys(usage_a, 0), f"control_plane: A after the crash {usage_a}")
+    check(crash_drop >= 0.9 * weights and freed,
+          f"control_plane: the crash freed {crash_drop} of {weights} bytes")
+    check([r["node"] for r in runs] == ["gpu0", "gpu0", "gpu0", "gpu1", "gpu0"],
+          f"control_plane: nodes {[r['node'] for r in runs]}")
+    check(drain_drop >= 0.9 * weights, f"control_plane: draining B freed {drain_drop} bytes")
+    check(runs[-1]["warm_stage"] is None and runs[-1]["stages_ms"]["gpu_data"] >= ms(pcie_s)
+          and rise >= 0.9 * weights,
+          f"control_plane: A's cold request paid no host -> device copy: {runs[-1]}, {rise}")
+    check(max(errs) <= 1e-3, f"control_plane: served differs from the direct forward: {errs}")
+    check(usage == dict.fromkeys(usage, 0), f"control_plane: teardown {usage}")
+    check(after <= base_alloc and final <= base_alloc,
+          f"control_plane: device memory not freed: {after}, {final} > {base_alloc}")
+    want = {**dict.fromkeys(KERNELS, 0), fa.NAME: 5 * layers}
+    check(launches == want, f"control_plane: crash-and-drain launches {launches} != {want}")
+    return launches, report
+
+
+def control_chaos():
+    """Part (b): the reference's quick chaos scenario, hardened, on a
+    4-node runtime gateway on the card; tight and loose serve the reduced
+    qwen2.5-3b (K1), flaky the reduced mamba2-780m (K3), each keeping the
+    scenario's declared bytes. Returns the launches and the report."""
+    base_alloc = freed_memory()[1]
+    gw = Gateway(backend="runtime", n_nodes=CHAOS_NODES, seed=CHAOS_SEED,
+                 faults=chaos_plan(CHAOS_WINDOW_S), eviction=True, breaker=CHAOS_BREAKER,
+                 shedding=CHAOS_SHEDDING, device="cuda")
+    for name in sorted(CHAOS_CLASSES):
+        gw.register(FunctionSpec(name=name, arch=CHAOS_ARCHS[name], read_only_bytes=24 << 20,
+                                 writable_bytes=4 << 20, context_bytes=16 << 20,
+                                 compute_ms=10.0))
+    scale = 120.0 / CHAOS_WINDOW_S / 10.0
+    classes = {f: (r * scale, dl, pr) for f, (r, dl, pr) in CHAOS_CLASSES.items()}
+    workload = ChaosWorkload(classes, CHAOS_WINDOW_S, seed=CHAOS_SEED)
+    reset_counts()  # -- the chaos path starts here
+    t0 = time.monotonic()
+    tel = gw.replay(workload, pace=1.0, timeout=120.0)
+    wall_s = time.monotonic() - t0
+    launches = counts()  # -- and ends here
+    stats = gw.resilience_stats()
+    recs = [r for r in tel.snapshot() if not r.dropped]
+    dead = {n.node_id: n.memory_usage() for n in gw._nodes if not n.healthy}
+    errs = {}
+    for name in sorted(CHAOS_CLASSES):
+        rec = next((r for r in recs if r.function == name and r.error is None
+                    and r.redispatches == 0), None)
+        if rec is None:
+            continue
+        node = next(n for n in gw._nodes if n.node_id == rec.node_id)
+        cfg = ARCHS[CHAOS_ARCHS[name]].reduced()
+        weights = node.db.to_device(node.db.fetch(f"{name}/weights"))
+        errs[name] = served_err(node.db, cfg, rec, weights)
+        del weights
+    usage = retire(gw)
+    gw.shutdown()
+    del gw
+    after_raw, after = freed_memory()
+    report = {
+        "window_s": CHAOS_WINDOW_S, "wall_s": wall_s, "arrivals": len(recs),
+        "served": sum(r.error is None for r in recs),
+        "goodput": 1.0 - tel.slo_miss_rate(), "error_counts": tel.error_counts(),
+        "slo_by_priority": {p: c["attainment"] for p, c in sorted(tel.slo_by_priority().items())},
+        "resilience": stats, "dead_nodes_usage": dead, "direct_max_abs_err": errs,
+        "launches": launches, "usage_after": usage, "memory_allocated_before": base_alloc,
+        "memory_allocated_after_shutdown": after_raw,
+        "memory_allocated_after_cublas_workspaces_cleared": after}
+    check(stats["node_crashes"] == 3, f"chaos: {stats['node_crashes']} node crashes")
+    untyped = [r.error for r in recs
+               if r.error is not None and classify_error(r.error) not in TYPED_ERRORS]
+    check(not untyped, f"chaos: untyped failures {untyped[:3]}")
+    check(all(u == dict.fromkeys(u, 0) for u in dead.values()), f"chaos: dead nodes {dead}")
+    check(set(errs) == set(CHAOS_CLASSES) and max(errs.values()) <= TOL[torch.float32],
+          f"chaos: served outputs against the direct forward {errs}")
+    check(launches[fa.NAME] > 0 and launches[ssd.NAME] > 0, f"chaos: launches {launches}")
+    check(after <= base_alloc, f"chaos: device memory not freed: {after} > {base_alloc}")
+    return launches, report
+
+
+def control_hedge_batch():
+    """Part (c): two 2-node runtime gateways on the card over the reduced
+    qwen2.5-3b. Hedging: gpu1 slowed HEDGE_SLOW_FACTOR times (SlowNode),
+    random dispatch, Poisson arrivals at HEDGE_RATE for HEDGE_WINDOW_S;
+    every loser ends hedged, never as an error. Batching: shared compute, max_batch 4, a burst of 4
+    simultaneous arrivals forms one batch (one grant of the modelled
+    stacked launch) while each member runs its own forward, so K1 launches
+    4 x the forward's. Returns the launches and the report."""
+    cfg = ARCHS["qwen2.5-3b"].reduced()
+    spec = FunctionSpec(name="h", arch="qwen2.5-3b", profile="seq2seq")
+    base_alloc = freed_memory()[1]
+    gw = Gateway(backend="runtime", n_nodes=2, seed=6, time_scale=SERVE_TIME_SCALE,
+                 dispatch="random", faults=FaultPlan([SlowNode("gpu1", at_s=0.0,
+                                                               factor=HEDGE_SLOW_FACTOR)], seed=6),
+                 hedging=dict(min_samples=6, hedge_quantile=0.9), device="cuda")
+    gw.register(spec)
+    reset_counts()  # -- the hedging path starts here
+    t0 = time.monotonic()
+    tel = gw.replay(PoissonWorkload("h", HEDGE_RATE, HEDGE_WINDOW_S, seed=6), timeout=60.0)
+    hedge_s = time.monotonic() - t0
+    hedge_launches = counts()  # -- and ends here
+    stats = gw.resilience_stats()
+    recs = tel.snapshot()
+    losers = [r for r in recs if r.dropped]
+    kept = [r for r in recs if not r.dropped]
+    hedge_usage = retire(gw)
+    gw.shutdown()
+    del gw
+    hedge_after = freed_memory()[1]
+    check(stats["hedges_launched"] >= 1, f"hedging: no hedge fired {stats}")
+    check(len(losers) == stats["hedges_won"] + stats["hedges_wasted"]
+          == stats["hedges_launched"], f"hedging: {len(losers)} losers for {stats}")
+    check(all(r.error_class == "hedged" for r in losers), "hedging: a loser is not 'hedged'")
+    check(all(r.error is None for r in kept), f"hedging: {[r.error for r in kept if r.error]}")
+    check(all(u == dict.fromkeys(u, 0) for u in hedge_usage), f"hedging: leaked {hedge_usage}")
+    check(hedge_after <= base_alloc, f"hedging: device memory not freed: {hedge_after}")
+
+    gw = Gateway(backend="runtime", n_nodes=2, seed=3, time_scale=SERVE_TIME_SCALE,
+                 dispatch="locality", compute={"mode": "shared", "max_batch": 4,
+                                               "batch_window_s": 0.5}, device="cuda")
+    gw.register(FunctionSpec(name="b", arch="qwen2.5-3b", profile="seq2seq"))
+    reset_counts()  # -- the batching path starts here
+    t0 = time.monotonic()
+    tel = gw.replay(TraceWorkload([Arrival(0.0, "b") for _ in range(4)]), timeout=60.0)
+    batch_s = time.monotonic() - t0
+    batch_launches = counts()  # -- and ends here
+    cstats = gw.compute_stats()
+    recs = [r for r in tel.snapshot() if not r.dropped]
+    node = next(n for n in gw._nodes if n.node_id == recs[0].node_id)
+    weights = node.db.to_device(node.db.fetch("b/weights"))
+    errs = [served_err(node.db, cfg, r, weights) for r in recs if r.error is None]
+    del weights
+    batch_usage = retire(gw)
+    gw.shutdown()
+    del gw
+    after_raw, after = freed_memory()
+    per_forward = forward_launches(cfg)
+    report = {
+        "hedging": {"slow_factor": HEDGE_SLOW_FACTOR, "arrivals": len(kept), "wall_s": hedge_s,
+                    "stats": stats, "losers": [{"node": r.node_id, "error": r.error}
+                                               for r in losers],
+                    "e2e_p99_ms": ms(max(r.e2e for r in kept)), "launches": hedge_launches,
+                    "usage_after": hedge_usage, "memory_allocated_after": hedge_after},
+        "batching": {"wall_s": batch_s, "compute_stats": cstats,
+                     "batch_sizes": [r.batch_size for r in recs],
+                     "nodes": [r.node_id for r in recs], "direct_max_abs_err": errs,
+                     "launches": batch_launches,
+                     "k1_per_forward": per_forward[fa.NAME], "usage_after": batch_usage},
+        "memory_allocated_before": base_alloc, "memory_allocated_after_shutdown": after_raw,
+        "memory_allocated_after_cublas_workspaces_cleared": after}
+    ids = {r.request_id for r in recs}
+    check(len(recs) == 4 and all(r.error is None and r.batch_size == 4
+                                 and set(r.batched_with) == ids - {r.request_id}
+                                 for r in recs), f"batching: records {report['batching']}")
+    check(cstats["batches"] == 1 and cstats["batched"] == 4 and cstats["grants"] == 1,
+          f"batching: compute_stats {cstats}")
+    check(len(errs) == 4 and max(errs) <= TOL[torch.float32],
+          f"batching: served against the direct forward {errs}")
+    check(batch_launches == {n: 4 * c for n, c in per_forward.items()},
+          f"batching: launches {batch_launches}, want 4 x {per_forward}")
+    check(all(u == dict.fromkeys(u, 0) for u in batch_usage), f"batching: leaked {batch_usage}")
+    check(after <= base_alloc, f"batching: device memory not freed: {after} > {base_alloc}")
+    return {n: hedge_launches[n] + batch_launches[n] for n in KERNELS}, report
+
+
+def phase_control_plane():
+    """The cluster control plane on the card with real tensors: (a) crash
+    and drain at full width on real memory, (b) the hardened chaos
+    scenario over reduced model functions, (c) hedging and shared-compute
+    batching over the reduced qwen2.5-3b. Each part sets the counts to 0
+    just before it drives its path and reads them just after; returns the
+    launches over the three."""
+    t0 = time.monotonic()
+    total, parts = dict.fromkeys(KERNELS, 0), {}
+    for part, fn in (("crash_drain", control_crash_drain), ("chaos", control_chaos),
+                     ("hedge_batch", control_hedge_batch)):
+        t = time.monotonic()
+        launches, parts[part] = fn()
+        parts[part]["seconds"] = time.monotonic() - t
+        for name, n in launches.items():
+            total[name] += n
+    emit({"phase": "control_plane", **parts, "launches": total,
+          "seconds": time.monotonic() - t0})
+    return total
 
 
 def profiled(fn, by_op=False):
@@ -2305,7 +2698,7 @@ def run_phases(smi, timed, seconds, t_start, dryrun_job):
                                   "moe_decode", "whisper_prefill", "whisper_decode",
                                   "zoo_reduced", "train", "train_reduced", "train_mamba",
                                   "cells", "serve", "serve_workload", "exit_ladder",
-                                  "analysis"),
+                                  "control_plane", "analysis"),
                                  0)
              for name in KERNELS}
 
@@ -2322,6 +2715,7 @@ def run_phases(smi, timed, seconds, t_start, dryrun_job):
     add("serve", timed("serve", phase_serve))
     add("serve_workload", timed("serve_workload", phase_serve_workload))
     add("exit_ladder", timed("exit_ladder", phase_exit_ladder))
+    add("control_plane", timed("control_plane", phase_control_plane))
     timed("decode", phase_decode, "qwen2.5-3b", paths)
     timed("mamba_decode", phase_decode, "mamba2-780m", paths)
     timed("moe_decode", phase_decode, "olmoe-1b-7b", paths, path="moe_")
@@ -2355,7 +2749,8 @@ def run_phases(smi, timed, seconds, t_start, dryrun_job):
                        (ssd.NAME, "train_mamba"), (ssd.NAME, "train_reduced"),
                        (ssdb.NAME, "train_reduced"), (fa.NAME, "serve"),
                        (fa.NAME, "serve_workload"), (ssd.NAME, "serve_workload"),
-                       (fa.NAME, "exit_ladder"), (fa.NAME, "analysis"),
+                       (fa.NAME, "exit_ladder"), (fa.NAME, "control_plane"),
+                       (ssd.NAME, "control_plane"), (fa.NAME, "analysis"),
                        (fab.NAME, "analysis"), (dec.NAME, "analysis"),
                        *((name, "cells") for name in KERNELS)):
         check(paths[name][path] > 0, f"{name} never launched on the {path} path")

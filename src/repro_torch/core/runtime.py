@@ -264,10 +264,14 @@ class SageRuntime:
         """Retire this node gracefully: wait up to ``timeout`` seconds for
         its in-flight invocations to finish (their bookkeeping settles
         after the caller's futures resolve), then :meth:`drain_teardown`.
-        Returns :meth:`memory_usage` after the teardown (all zeros)."""
+        Returns :meth:`memory_usage` after the teardown (all zeros). A node
+        still busy after ``timeout`` raises ``TimeoutError`` and is left
+        serving, untouched."""
         deadline = time.monotonic() + timeout
         while not self.is_idle() and time.monotonic() < deadline:
             time.sleep(0.01)
+        if not self.is_idle():
+            raise TimeoutError(f"drain: {self.node_id} still busy after {timeout} s")
         self.drain_teardown()
         return self.memory_usage()
 

@@ -50,13 +50,18 @@ class Database:
 
     def to_device(self, obj: Any) -> Any:
         """Host -> device materialization: every tensor in a nested
-        dict/list/tuple goes to ``self.device``; other leaves pass through
-        unchanged. The copy is blocking on the current stream, so the tensor
-        is usable by any thread once this returns; a failing copy raises."""
+        dict/list/tuple/namedtuple goes to ``self.device`` (the containers
+        keep their types, as ``jax.device_put`` keeps a pytree's); other
+        leaves pass through unchanged. The copy is blocking on the current
+        stream, so the tensor is usable by any thread once this returns; a
+        failing copy raises."""
         if isinstance(obj, torch.Tensor):
             return obj.to(self.device)
         if isinstance(obj, dict):
             return {k: self.to_device(v) for k, v in obj.items()}
+        if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+            # a namedtuple takes its fields as arguments, not an iterable
+            return type(obj)(*(self.to_device(v) for v in obj))
         if isinstance(obj, (list, tuple)):
             return type(obj)(self.to_device(v) for v in obj)
         return obj
