@@ -95,15 +95,21 @@ Phases, one JSON line each:
                  (data, model) DeviceMesh over a one-rank NCCL group, the
                  inputs DTensors placed by distributed/rules.py:
                  qwen2.5-3b's train cell (3 steps), prefill cell (4 x
-                 1024) and decode cell (4 steps) and mamba2-780m's train
-                 cell (3 steps) at full width, each against the same
+                 1024) and decode cell (4 steps), mamba2-780m's train
+                 cell (3 steps) and olmoe-1b-7b's prefill and decode cells
+                 (the MoE FFN through distributed/local.py's moe_ffn, one
+                 call a layer) at full width, and the reduced jamba's
+                 train cell (fp32, 2 x 16, 3 steps: K1, K3 and both
+                 backwards beside the MoE FFN), each against the same
                  model's single-device steps on the same seeded weights
-                 (losses, grad norms, logits), with each step's wall time
-                 beside the single-device step's; all five kernels launch
-                 there. Then the dry-run of qwen2.5-3b x train_4k on the
-                 16 x 16 production mesh (256 fake ranks, no device; a
-                 niced subprocess started after the build): its per-rank
-                 bytes, FLOPs, collective bytes and roofline terms;
+                 (losses, grad norms, logits; the prefills' logits and the
+                 reduced jamba's losses bit for bit), with each step's
+                 wall time beside the single-device step's; all five
+                 kernels launch there. Then the dry-run of qwen2.5-3b x
+                 train_4k on the 16 x 16 production mesh (256 fake ranks,
+                 no device; a niced subprocess started after the build):
+                 its per-rank bytes, FLOPs, collective bytes and roofline
+                 terms;
 16. serve        launch/serve.py's serve() on the card for FixedGSL and SAGE
                  (the reduced qwen2.5-3b, 16 Poisson requests at rate 8):
                  every request served, K1 launched, no declared or real
@@ -202,8 +208,9 @@ from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels import ssd_scan_bwd as ssdb  # noqa: E402
+from repro_torch.distributed import local as dlocal  # noqa: E402
 from repro_torch.launch.cells import (  # noqa: E402
-    _build_decode, _build_prefill, _build_train, get_tuning, place_batch,
+    CellTuning, _build_decode, _build_prefill, _build_train, get_tuning, place_batch,
 )
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
@@ -2158,6 +2165,8 @@ def phase_train(arch, phase):
 # the cells phase: card-sized ShapeConfigs for the production cells' builders
 CELL_TRAIN_STEPS, CELL_DECODE_STEPS = 3, 4
 CELL_TOL = {"attention": 2e-2, "ssd": 3e-2}  # tests/test_kernels.py's bf16 tolerances
+MOE_CELL_ARCH = "olmoe-1b-7b"  # its fp32 AdamW state (~110 GB) fits no card: no train cell
+REDUCED_CELL_BATCH, REDUCED_CELL_SEQ = 2, 16  # the reduced jamba's train cell
 DRYRUN_CELL = ("qwen2.5-3b", "train_4k")
 DRYRUN_TIMEOUT_S = 300
 
@@ -2207,15 +2216,41 @@ def rel_err(got, want) -> float:
     return ((got.float() - want.float()).abs().max() / (1 + want.float().abs().max())).item()
 
 
-def cell_train(arch, mesh):
-    """``arch`` at full width: CELL_TRAIN_STEPS single-device steps, then
-    the same from the same seeded state through the production train
-    cell's builder (``_build_train``, a card-sized ShapeConfig) on the 1 x 1
-    mesh; one after the other, never both states at once. Returns (record,
-    the cell's launches)."""
-    cfg = ARCHS[arch]
-    shape = ShapeConfig("card_train", "train", TRAIN_SEQ, TRAIN_BATCH)
-    data = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0))
+def moe_layers(cfg) -> int:
+    return sum(s.ffn == "moe" for s in cfg.period_spec()) * cfg.num_periods
+
+
+@contextlib.contextmanager
+def counting_moe_ffn():
+    """``distributed.local.moe_ffn`` (the MoE FFN on a mesh, which
+    ``layers.moe_forward`` takes for a ``DTensor``) counted: yields a list
+    that gains one entry a call."""
+    calls, inner = [], dlocal.moe_ffn
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return inner(*args, **kwargs)
+
+    dlocal.moe_ffn = counted
+    try:
+        yield calls
+    finally:
+        dlocal.moe_ffn = inner
+
+
+def cell_train(arch, mesh, reduced=False):
+    """``arch`` at full width (``reduced``: its reduced config in fp32,
+    REDUCED_CELL_BATCH x REDUCED_CELL_SEQ, the default tuning):
+    CELL_TRAIN_STEPS single-device steps, then the same from the same
+    seeded state through the production train cell's builder
+    (``_build_train``, a card-sized ShapeConfig) on the 1 x 1 mesh; one
+    after the other, never both states at once. Returns (record, the
+    cell's launches)."""
+    cfg = ARCHS[arch].reduced() if reduced else ARCHS[arch]
+    batch, seq = (REDUCED_CELL_BATCH, REDUCED_CELL_SEQ) if reduced else (TRAIN_BATCH, TRAIN_SEQ)
+    tuning = CellTuning() if reduced else get_tuning(arch, "train_4k")
+    shape = ShapeConfig("card_train", "train", seq, batch)
+    data = TokenPipeline(DataConfig(cfg.vocab_size, batch, seq, seed=0))
     batches = [{k: torch.from_numpy(v).cuda() for k, v in data.batch_at(i).items()}
                for i in range(CELL_TRAIN_STEPS)]
 
@@ -2237,26 +2272,34 @@ def cell_train(arch, mesh):
     torch.cuda.empty_cache()
     state = init_train_state(cfg, TRAIN_OPT, torch.Generator("cuda").manual_seed(0), "cuda")
     t0 = time.monotonic()
-    step, (cstate, _), meta = _build_train(cfg, shape, mesh, get_tuning(arch, "train_4k"),
-                                           state=state, opt_cfg=TRAIN_OPT)
+    step, (cstate, _), meta = _build_train(cfg, shape, mesh, tuning, state=state,
+                                           opt_cfg=TRAIN_OPT)
     del state
     build_s = time.monotonic() - t0
-    reset_counts()  # -- the cells path (train) starts here
-    got = run(step, cstate, lambda b: place_batch(cfg, mesh, b, "train"))
-    launches = counts()  # -- and ends here
+    with counting_moe_ffn() as moe_calls:
+        reset_counts()  # -- the cells path (train) starts here
+        got = run(step, cstate, lambda b: place_batch(cfg, mesh, b, "train"))
+        launches = counts()  # -- and ends here
     del cstate, step
     gc.collect()
     torch.cuda.empty_cache()
     tol = CELL_TOL["ssd" if cfg.num_mamba_layers else "attention"]
     errs = [rel_err(a, b) for a, b in zip(got[0] + got[1], ref[0] + ref[1])]
-    rec = {"arch": arch, "cell": "train", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+    rec = {"arch": cfg.name, "cell": "train", "batch": batch, "seq": seq,
            "policy": {k: list(v) for k, v in meta["policy"].items()},
            "losses": got[0], "losses_single_device": ref[0], "grad_norms": got[1],
            "grad_norms_single_device": ref[1], "bit_equal": got[:2] == ref[:2],
            "max_rel_err": max(errs), "tol": tol, "step_s": got[2],
-           "step_s_single_device": ref[2], "build_s": build_s, "launches": launches}
+           "step_s_single_device": ref[2], "build_s": build_s, "launches": launches,
+           "moe_ffn_calls": len(moe_calls)}
     check(all(np.isfinite(x) for x in got[0] + got[1]), f"cells {arch}: not finite {got}")
     check(max(errs) <= tol, f"cells {arch} train differs from one device: {rec}")
+    # every step runs each MoE layer's forward, and again under remat
+    check(len(moe_calls) % (CELL_TRAIN_STEPS * moe_layers(cfg) or 1) == 0
+          and (len(moe_calls) > 0) == (moe_layers(cfg) > 0),
+          f"cells {cfg.name}: local.moe_ffn ran {len(moe_calls)} times")
+    if reduced:  # fp32, the same ops on one rank: the same losses
+        check(got[0] == ref[0], f"cells {cfg.name} losses differ from one device: {rec}")
     return rec, launches
 
 
@@ -2294,25 +2337,32 @@ def cell_serve(arch, mesh):
         tuning = get_tuning(arch, "prefill_32k")
         pshape = ShapeConfig("card_prefill", "prefill", FULL_SEQ, FULL_BATCH)
         dshape = ShapeConfig("card_decode", "decode", L, FULL_BATCH)
+        moe_calls = {}
         reset_counts()  # -- the cells path (prefill, decode) starts here
         pstep, (pparams, _, pcache), pmeta = _build_prefill(cfg, pshape, mesh, tuning,
                                                             params=params)
         batch = place_batch(cfg, mesh, {"tokens": prompt}, "prefill")
-        (plog, _), cpre_s = timed_call(pstep, pparams, batch, pcache)
+        with counting_moe_ffn() as calls:
+            (plog, _), cpre_s = timed_call(pstep, pparams, batch, pcache)
+        moe_calls["prefill"] = len(calls)
         got = [plog.full_tensor()]
         del pcache
         dstep, (dparams, _, _, dcache), dmeta = _build_decode(cfg, dshape, mesh, tuning,
                                                               params=params)
         pstep(dparams, batch, dcache)  # fills the decode cell's cache
-        cdec_s = []
+        cdec_s, moe_calls["decode"] = [], []
         for i in range(CELL_DECODE_STEPS):
             ins = place_batch(cfg, mesh, {"tokens": toks[i], "positions": pos0 + i}, "decode")
-            (lg, _), sec = timed_call(dstep, dparams, ins["tokens"], ins["positions"], dcache)
+            with counting_moe_ffn() as calls:
+                (lg, _), sec = timed_call(dstep, dparams, ins["tokens"], ins["positions"],
+                                          dcache)
+            moe_calls["decode"].append(len(calls))
             got.append(lg.full_tensor())
             cdec_s.append(sec)
         launches = counts()  # -- and ends here
         errs = [rel_err(a, b) for a, b in zip(got, ref)]
         bit = all(torch.equal(a, b) for a, b in zip(got, ref))
+        prefill_bit = torch.equal(got[0], ref[0])
         del params, pparams, dparams, dcache, got, ref, plog, lg
     gc.collect()
     torch.cuda.empty_cache()
@@ -2320,24 +2370,33 @@ def cell_serve(arch, mesh):
     rec = {"arch": arch, "cell": "prefill+decode", "batch": FULL_BATCH, "prompt": FULL_SEQ,
            "decode_steps": CELL_DECODE_STEPS, "cache_len": L,
            "zero_shard_decode": dmeta["zero_shard_decode"],
-           "max_rel_err_logits": errs, "bit_equal": bit, "tol": tol,
-           "prefill_s": cpre_s, "prefill_s_single_device": pre_s,
+           "max_rel_err_logits": errs, "bit_equal": bit, "prefill_bit_equal": prefill_bit,
+           "tol": tol, "prefill_s": cpre_s, "prefill_s_single_device": pre_s,
            "decode_step_s": cdec_s, "decode_step_s_single_device": ref_s,
-           "launches": launches,
+           "launches": launches, "moe_ffn_calls": moe_calls,
            "note": "the decode cell merges K2's per-split partials across the cache's "
                    "sequence shards in PyTorch (distributed.local.merge_partials); one "
                    "device merges them in K2's combine kernel"}
     check(max(errs) <= tol, f"cells {arch} logits differ from one device: {rec}")
+    check(prefill_bit, f"cells {arch}: the prefill cell's logits are not the single "
+                       f"device's bit for bit: {rec}")
+    n = moe_layers(cfg)
+    check(moe_calls == {"prefill": n, "decode": [n] * CELL_DECODE_STEPS},
+          f"cells {arch}: local.moe_ffn ran {moe_calls}, want {n} a step")
+    check(launches[fa.NAME] > 0 and launches[dec.NAME] > 0,
+          f"cells {arch}: K1 or K2 not launched: {launches}")
     return rec, launches
 
 
 def phase_cells(dryrun_job):
     """The production cells' builders (launch/cells.py) on a 1 x 1 (data,
     model) mesh over a one-rank NCCL group: qwen2.5-3b's train, prefill and
-    decode cells and mamba2-780m's train cell at full width, each against
-    the same model's single-device steps on the same seeded weights; then
-    the dry-run of one production cell (started after the build).
-    Returns the cells' launches by kernel."""
+    decode cells, mamba2-780m's train cell and olmoe-1b-7b's prefill and
+    decode cells (the MoE FFN through ``local.moe_ffn``) at full width,
+    and the reduced jamba's train cell (K1, K3 and its backward, the MoE
+    FFN), each against the same model's single-device steps on the same
+    seeded weights; then the dry-run of one production cell (started after
+    the build). Returns the cells' launches by kernel."""
     gc.collect()
     torch.cuda.empty_cache()
     torch._C._cuda_clearCublasWorkspaces()  # each thread's 32 MiB (autograd's too)
@@ -2352,7 +2411,8 @@ def phase_cells(dryrun_job):
     try:
         mesh = make_host_mesh(1, 1, device_type="cuda")
         for fn, arch in ((cell_train, TRAIN_ARCH), (cell_serve, TRAIN_ARCH),
-                         (cell_train, MAMBA_TRAIN_ARCH)):
+                         (cell_train, MAMBA_TRAIN_ARCH), (cell_serve, MOE_CELL_ARCH),
+                         (functools.partial(cell_train, reduced=True), JAMBA_ARCH)):
             rec, got = fn(arch, mesh)
             recs.append(rec)
             for n, c in got.items():

@@ -53,9 +53,14 @@ remat. With no analysis running, ``kernels.ops`` pays one ``None`` check.
 
 On ``DTensor``s (a cell's step on a mesh) the mode lets ``DTensor`` run
 each op and counts what it runs on this rank: the local ops on the
-shards' shapes and the collectives of its redistributions. The ops that
-``DTensor`` runs on fake tensors to find the global shapes are not work
-and are not counted. So a dry-run's report is one rank's.
+shards' shapes and the collectives of its redistributions. What
+``DTensor`` runs to choose a layout is not work and is not counted: the
+ops on fake tensors that find the global shapes, and the ops (chunks,
+concatenations, index ranges, empty shards) that price each candidate
+layout's redistributions while it propagates an op's shardings, or plan
+a redistribution, on plain tensors (``_propagation_uncounted``). So a
+dry-run's report is one rank's, and the same whether ``DTensor``'s
+caches of those choices are cold or warm.
 
 Eager mode runs every layer of a stack, so the JAX package's trip-count
 multiplication has no counterpart: a loop of L layers counts L times.
@@ -417,6 +422,39 @@ def _group_size(args) -> int:
     return 1
 
 
+@contextmanager
+def _propagation_uncounted(counter: _Counter):
+    """``DTensor``'s choice of layouts run inside ``counter.inside()``: its
+    sharding propagator's cached and uncached entry points (on its one
+    instance) and the redistribution planner (``_gen_transform_infos``'s
+    uncached body) are wrapped while the step runs, and restored after."""
+    import torch.distributed.tensor._redistribute as redistribute
+
+    prop = DTensor._op_dispatcher.sharding_propagator
+    sites = [(obj, n) for obj, n in ((prop, "propagate_op_sharding"),
+                                     (prop, "propagate_op_sharding_non_cached"),
+                                     (redistribute, "_gen_transform_infos_non_cached"))
+             if hasattr(obj, n)]
+    own = [(obj, n, vars(obj).get(n)) for obj, n in sites]
+
+    def uncounted(orig):
+        def run(*args, **kwargs):
+            with counter.inside():
+                return orig(*args, **kwargs)
+        return run
+
+    for obj, n in sites:
+        setattr(obj, n, uncounted(getattr(obj, n)))
+    try:
+        yield
+    finally:
+        for obj, n, was in own:
+            if was is None:
+                delattr(obj, n)
+            else:
+                setattr(obj, n, was)
+
+
 def analyze_step(fn, *args, **kwargs) -> dict:
     """Run ``fn(*args, **kwargs)`` once and return its report (the module
     docstring lists the keys). ``fn`` runs as it would without analysis;
@@ -427,7 +465,7 @@ def analyze_step(fn, *args, **kwargs) -> dict:
     counter = _Counter(report)
     _ops.counter = counter
     try:
-        with counter:
+        with counter, _propagation_uncounted(counter):
             fn(*args, **kwargs)
     finally:
         _ops.counter = None

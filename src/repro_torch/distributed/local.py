@@ -1,9 +1,12 @@
 """What each rank computes on its own shards, where ``DTensor``'s own rules
 cannot say it: the hand kernels (which take raw pointers through ``ctypes``
-and know nothing of ``DTensor``), the vocab-sharded lookups, and the cache
-writes. Each runs through ``local_map`` with stated placements, one per
-mesh dim; the batch keeps the placement it came with on the data axes, and
-the ``model`` axis is set here:
+and know nothing of ``DTensor``), the MoE FFN (whose einsums ``DTensor``
+would lay out op by op, by a search that takes minutes on a 3-D mesh and
+picks layouts that do many times a rank's share of the expert products),
+the vocab-sharded lookups, and the cache writes. Each runs through
+``local_map`` with stated placements, one per mesh dim; the batch keeps
+the placement it came with on the data axes, and the ``model`` axis is
+set here:
 
 * ``flash_attention``: query heads over ``model`` when they divide by it,
   else replicated (every rank runs all heads, and no collective beyond
@@ -21,6 +24,10 @@ the ``model`` axis is set here:
   (``ref._combine_partials``). The cache is never gathered.
 * ``ssd_scan``: SSD heads over ``model``; B and C (ngroups 1) whole on
   every rank, their gradients partial sums over ``model``.
+* ``moe_ffn``: the MoE FFN's experts over ``model`` (the JAX rules'
+  layout): each rank routes its rows on all experts, then runs its own E /
+  tp; the output is a partial sum over ``model``. Experts that do not
+  divide run whole on every rank.
 * ``embedding`` / ``target_logits``: a vocab-sharded table or logits; each
   rank looks up the ids it holds, zeros the rest, and the partial sums are
   reduced at once.
@@ -216,6 +223,78 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk=128, initial_state=None, **kw):
     return local_map(fn, out_placements=(xpl, spl), in_placements=tuple(inp),
                      in_grad_placements=tuple(grads), device_mesh=mesh,
                      redistribute_inputs=True)(*args)
+
+
+# ---------------------------------------------------------------------------
+# the MoE FFN: experts over ``model``
+# ---------------------------------------------------------------------------
+
+
+def moe_ffn(cfg, p, x, *, capacity_factor=None):
+    """``layers.moe_forward`` for a ``DTensor`` ``x`` (B, S, D): (y, aux).
+
+    Each rank takes its batch rows whole over ``model`` (the norm's output
+    already is), routes them on all E experts and counts the capacity
+    slots (per batch row, so on its own rows), then dispatches to,
+    computes and combines only its own E / tp experts (``layers.
+    moe_experts`` on its slice of the one-hots and its expert weights). y
+    is a partial sum over ``model``, reduced into the residual's placement
+    where it is added (``act_sharding.placed_like``). E that does not
+    divide by the model axis: every rank runs all experts and y is whole.
+
+    aux is the one-rank step's mean over the global batch: each rank's
+    share of the routed fractions is all-reduced over the batch axes,
+    and its share of the mean router probabilities (times those
+    fractions, over its own experts) is a partial sum over the batch axes
+    and ``model``, so its gradient reaches each rank's rows once.
+    Gradients: the expert weights get their own shards; the router and x
+    partial sums over ``model`` (each rank's experts' share)."""
+    import torch.distributed._functional_collectives as funcol
+
+    from repro_torch.models import layers as L
+
+    Partial, Replicate, Shard = _pl()
+    mesh = x.device_mesh
+    E, K = cfg.num_experts, cfg.experts_per_token
+    t = _tp(mesh)
+    esplit = E % t == 0 and t > 1
+    ct = L.cdtype(cfg)
+    C = L.moe_capacity(cfg, x.shape[1], capacity_factor)
+    rows = x.shape[0]
+    batch = _batch_axes(mesh, x)
+    part = Partial() if esplit else Replicate()
+    epl = Shard(0) if esplit else Replicate()
+    xpl = _places(mesh, batch, 0, Replicate())
+    rpl = _places(mesh, batch, None, Replicate())
+    wpl = _places(mesh, batch, None, epl)
+
+    def fn(xl, rl, wgl, wul, wdl):
+        probs, gate_vals, gate_idx = L.moe_route(cfg, {"router": rl}, xl)
+        onehot = F.one_hot(gate_idx, E)
+        frac_probs = probs.mean(dim=(0, 1))
+        if esplit:
+            lo = _rank(mesh) * (E // t)
+            onehot, frac_probs = onehot[..., lo:lo + E // t], frac_probs[lo:lo + E // t]
+        y = L.moe_experts(cfg, xl, gate_vals, gate_idx, onehot, wgl, wul, wdl, C)
+        frac_tokens = onehot.sum(2).float().mean(dim=(0, 1))
+        share = xl.shape[0] / rows
+        if share != 1:
+            frac_tokens, frac_probs = frac_tokens * share, frac_probs * share
+            for i in sorted(batch):
+                frac_tokens = funcol.all_reduce(frac_tokens, "sum", (mesh, i))
+        return y, E * torch.sum(frac_tokens * frac_probs) / K
+
+    y, aux = local_map(
+        fn, out_placements=(_places(mesh, batch, 0, part), _no_batch_grad(mesh, batch, part)),
+        in_placements=(xpl, rpl, wpl, wpl, wpl),
+        in_grad_placements=(_places(mesh, batch, 0, part), _no_batch_grad(mesh, batch, part),
+                            *[_no_batch_grad(mesh, batch, epl)] * 3),
+        device_mesh=mesh, redistribute_inputs=True)(
+            x, L.weight(p["router"], torch.float32), L.weight(p["wg"], ct),
+            L.weight(p["wu"], ct), L.weight(p["wd"], ct))
+    if cfg.moe_shared_expert:
+        y = y + L.mlp_forward(cfg, p["shared"], x)
+    return y.to(x.dtype), _reduce(aux).float()
 
 
 # ---------------------------------------------------------------------------

@@ -350,27 +350,26 @@ def moe_route(cfg: ModelConfig, p: dict, x: torch.Tensor):
     return probs, gate_vals, gate_idx
 
 
-def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
-                capacity_factor: Optional[float] = None):
-    """Token-choice top-k routing with per-(batch-row) expert capacity C;
-    x (B, S, D). Returns (y, aux_loss).
-
-    The JAX package's one-hot einsum dispatch, ported as it is: a choice
-    whose slot in its expert's buffer is >= C is dropped (its token gets
-    nothing from that expert), and the drops are part of the result.
-    ``jax.nn.one_hot`` gives a zero row for an index out of range where
-    ``F.one_hot`` raises, so the capacity one-hot is a comparison with
-    ``arange(C)`` and ``kept``. The slots are counted in integers (the
-    reference counts exact integers in fp32). Dispatch, combine and the
-    gates are cast to the compute dtype before the einsums, as there."""
-    B, S, D = x.shape
+def moe_capacity(cfg: ModelConfig, S: int, capacity_factor: Optional[float] = None) -> int:
+    """Each expert's slots C per batch row of S tokens."""
     E, K = cfg.num_experts, cfg.experts_per_token
     cf = capacity_factor if capacity_factor is not None else cfg.moe_capacity_factor
-    C = max(K, int(math.ceil(K * S * cf / E)))
-    ct = cdtype(cfg)
+    return max(K, int(math.ceil(K * S * cf / E)))
 
-    probs, gate_vals, gate_idx = moe_route(cfg, p, x)
-    onehot = F.one_hot(gate_idx, E)  # (B,S,K,E) int64; the indices are < E
+
+def moe_experts(cfg: ModelConfig, x: torch.Tensor, gate_vals: torch.Tensor,
+                gate_idx: torch.Tensor, onehot: torch.Tensor, wg: torch.Tensor,
+                wu: torch.Tensor, wd: torch.Tensor, C: int) -> torch.Tensor:
+    """The experts of ``onehot`` (B,S,K,E'): every choice's slot is
+    counted over all E experts (``gate_idx``), then the tokens are
+    dispatched to, computed by and combined from the E' experts whose
+    one-hot columns and weights ``wg``/``wu``/``wd`` (E', d_in, d_out, in
+    the compute dtype) are given. All E on one device; a rank's own under
+    expert parallelism (``distributed.local.moe_ffn``), where the result is
+    its share of the sum over experts. (B,S,D) in the compute dtype."""
+    B, S, _ = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    ct = cdtype(cfg)
     # each (token, choice)'s slot in its expert's buffer: the choices before
     # it of its expert, counting over the flattened (s, k) in order per
     # batch row. The running count is taken along the innermost axis of an
@@ -391,11 +390,40 @@ def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                            cap_onehot)
 
     xin = torch.einsum("bsec,bsd->ebcd", dispatch, x.to(ct))
-    g = torch.einsum("ebcd,edf->ebcf", xin, weight(p["wg"], ct))
-    u = torch.einsum("ebcd,edf->ebcf", xin, weight(p["wu"], ct))
+    g = torch.einsum("ebcd,edf->ebcf", xin, wg)
+    u = torch.einsum("ebcd,edf->ebcf", xin, wu)
     h = F.silu(g.float()).to(ct) * u
-    eout = torch.einsum("ebcf,efd->ebcd", h, weight(p["wd"], ct))
-    y = torch.einsum("bsec,ebcd->bsd", combine, eout)
+    eout = torch.einsum("ebcf,efd->ebcd", h, wd)
+    return torch.einsum("bsec,ebcd->bsd", combine, eout)
+
+
+def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+                capacity_factor: Optional[float] = None):
+    """Token-choice top-k routing with per-(batch-row) expert capacity C;
+    x (B, S, D). Returns (y, aux_loss).
+
+    The JAX package's one-hot einsum dispatch, ported as it is: a choice
+    whose slot in its expert's buffer is >= C is dropped (its token gets
+    nothing from that expert), and the drops are part of the result.
+    ``jax.nn.one_hot`` gives a zero row for an index out of range where
+    ``F.one_hot`` raises, so the capacity one-hot is a comparison with
+    ``arange(C)`` and ``kept``. The slots are counted in integers (the
+    reference counts exact integers in fp32). Dispatch, combine and the
+    gates are cast to the compute dtype before the einsums, as there.
+
+    A ``DTensor`` ``x`` (a cell's step on a mesh) runs the experts over
+    ``model`` through ``distributed.local.moe_ffn``."""
+    if is_dtensor(x):
+        from repro_torch.distributed import local
+        return local.moe_ffn(cfg, p, x, capacity_factor=capacity_factor)
+    E, K = cfg.num_experts, cfg.experts_per_token
+    C = moe_capacity(cfg, x.shape[1], capacity_factor)
+    ct = cdtype(cfg)
+
+    probs, gate_vals, gate_idx = moe_route(cfg, p, x)
+    onehot = F.one_hot(gate_idx, E)  # (B,S,K,E) int64; the indices are < E
+    y = moe_experts(cfg, x, gate_vals, gate_idx, onehot, weight(p["wg"], ct),
+                    weight(p["wu"], ct), weight(p["wd"], ct), C)
 
     if cfg.moe_shared_expert:
         y = y + mlp_forward(cfg, p["shared"], x)

@@ -307,3 +307,114 @@ def test_op_analysis_counts_one_rank_of_a_dtensor_step():
     assert gather["dot_flops"] == 2 * 4 * 16 * 16
     assert gather["collective_counts"] == {"all-gather": 1}
     assert gather["collective_bytes"] == 8 * 16 * 4  # w2's local shard, fp32
+
+
+_COLD_WARM = textwrap.dedent("""
+    import json
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.analysis.op_analysis import analyze_step
+    from repro_torch.distributed.compat import init_fake_group, make_mesh
+    init_fake_group(4)
+    mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+    def dt(shape, pls):
+        return DTensor.from_local(torch.empty(shape, device="meta"), mesh, pls, run_check=False)
+    d = dt((2, 3, 4, 8), [Shard(0), Replicate()])     # global (4, 3, 4, 8)
+    c = dt((2, 3, 2, 8), [Shard(0), Shard(2)])        # global (4, 3, 4, 8)
+    w = dt((2, 8, 16), [Replicate(), Shard(0)])       # global (4, 8, 16)
+    def step():
+        return torch.einsum("ebcd,edf->ebcf", torch.einsum("bsec,bsed->ebcd", d, c), w)
+    out = [analyze_step(step), analyze_step(step)]
+    dist.destroy_process_group()
+    print(json.dumps(out))
+""")
+
+
+def test_op_analysis_skips_dtensor_layout_choices():
+    """Two MoE-like einsums on a 2 x 2 fake-group mesh, counted twice: the
+    first run, where ``DTensor`` prices every candidate layout and plans
+    its redistributions (chunks, concatenations, index ranges on plain
+    tensors), counts exactly what the second, served from its caches,
+    counts: only the rank's own ops and collectives."""
+    res = subprocess.run([sys.executable, "-c", _COLD_WARM],
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    cold, warm = json.loads(res.stdout.strip().splitlines()[-1])
+    assert cold == warm
+    assert warm["by_op"]["aten.bmm"]["count"] == 2 and "aten.cat" not in warm["by_op"]
+
+
+_MOE = textwrap.dedent("""
+    import json
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed.compat import init_fake_group, make_mesh
+    from repro_torch.launch.cells import place
+    from repro_torch.models import layers as L
+    from repro_torch.models import param_shapes
+    init_fake_group(8)
+    mesh = make_mesh((2, 4), ("data", "model"), device_type="cpu")
+    seen = []
+    experts = L.moe_experts
+    def spy(cfg, x, gate_vals, gate_idx, onehot, wg, wu, wd, C):
+        seen.append([list(t.shape) for t in (x, onehot, wg, wu, wd)])
+        return experts(cfg, x, gate_vals, gate_idx, onehot, wg, wu, wd, C)
+    L.moe_experts = spy
+    out = {}
+    for E in (8, 3):
+        cfg = ARCHS["olmoe-1b-7b"].reduced(num_experts=E)
+        params = place(cfg, mesh, param_shapes(cfg), "train")
+        ffn = {k: v[0] for k, v in params["layers"]["sub0"]["ffn"].items()}
+        x = DTensor.from_local(torch.empty((1, 16, cfg.d_model), device="meta"), mesh,
+                               [Shard(0), Replicate()], run_check=False)
+        y, aux = L.moe_forward(cfg, ffn, x)
+        out[E] = {"local": {k: list(v.to_local().shape) for k, v in
+                            params["layers"]["sub0"]["ffn"].items()},
+                  "seen": seen.pop(), "y": [repr(p) for p in y.placements],
+                  "y_shape": list(y.shape), "aux": [repr(p) for p in aux.placements]}
+    dist.destroy_process_group()
+    print(json.dumps(out))
+""")
+
+
+def test_moe_ffn_placements_on_a_fake_group():
+    """``local.moe_ffn`` on a (data, model) = (2, 4) fake-group mesh, the
+    reduced olmoe with 8 experts and with 3: the train rules' expert
+    weights hold, on rank 0, the JAX spec's shard shapes (E over
+    ``model`` when it divides, d_in over ``data``); each rank's experts
+    see their weights gathered over ``data`` and cut over ``model`` (2 of
+    8 experts, or all 3), its own rows (1 of 2) and its experts' one-hot
+    columns; y is a partial sum over ``model`` before the residual's
+    reduction (whole when E does not divide), still split by rows over
+    ``data``; aux is whole."""
+    res = subprocess.run([sys.executable, "-c", _MOE],
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    jmesh = jax_abstract_mesh((2, 4), ("data", "model"))
+    sizes = {"data": 2, "model": 4}
+    for E in (8, 3):
+        cfg = REF_ARCHS["olmoe-1b-7b"].reduced(num_experts=E)
+        jshapes = jax.eval_shape(lambda c=cfg: jax_init_params(c, jax.random.PRNGKey(0)))
+        row = got[str(E)]
+        for name, loc in row["local"].items():
+            leaf = jshapes["layers"]["sub0"]["ffn"][name]
+            want = list(leaf.shape)
+            spec = jrules.param_spec(cfg, jmesh, f"layers/sub0/ffn/{name}", leaf.shape,
+                                     mode="train")
+            for d, ax in enumerate(spec):
+                for a in (ax if isinstance(ax, tuple) else (ax,) if ax else ()):
+                    want[d] //= sizes[a]
+            assert loc == want, (E, name, loc, want)
+        el = E // 4 if E % 4 == 0 else E
+        D, Fd = cfg.d_model, cfg.moe_d_ff
+        assert row["seen"] == [[1, 16, D], [1, 16, 2, el], [el, D, Fd], [el, D, Fd],
+                               [el, Fd, D]], (E, row["seen"])
+        assert row["y_shape"] == [2, 16, D]
+        assert row["y"] == ["Shard(dim=0)", "Partial(sum)" if E == 8 else "Replicate()"]
+        assert row["aux"] == ["Replicate()", "Replicate()"]
