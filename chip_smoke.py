@@ -34,6 +34,8 @@ Phases, one JSON line each:
 5. full          SageRuntime serves the full-width qwen2.5-3b (36 layers,
                  d_model 2048, bf16, random weights from a seed), batch
                  4 x 1024 tokens: cold, warm, then a burst of 4 concurrent;
+                 the cold request's compute within COLD_MAX_OVER_WARM x the
+                 warm one's (its context carried the shape-only work);
 6. mamba_reduced the same as 4 for the reduced mamba2-780m;
 7. mamba_full    the same as 5 for the full-width mamba2-780m (48 layers,
                  d_model 1536, SSD heads 48 x 64, state 128, chunk 128, bf16);
@@ -142,13 +144,30 @@ Phases, one JSON line each:
                  against use_kernel=False at depth 2, then the full-width
                  prefill, decode step and train step with their roofline
                  terms beside their device time;
-21. the {"kernels": [...]} line, then the contract's last line.
+21. cold_setup   the full-width qwen2.5-3b served cold 3 times under SAGE
+                 and 3 under FixedGSL (each cold request on a new
+                 SageRuntime, each followed by a warm one), each policy in
+                 a fresh process (``python3 chip_smoke.py --cold-runs
+                 SYSTEM``): every request's gpu_ctx, gpu_data, compute and
+                 e2e, their medians, SAGE / FixedGSL; every cold compute
+                 within COLD_MAX_OVER_WARM x the warm median;
+22. rank_bodies  the 16 rank bodies of distributed/local.py's attention
+                 split by query rows (one full-width phi4-mini layer: 24
+                 heads do not divide by 16) and of its Mamba2 block split
+                 by SSD heads (one full-width mamba2-780m block), one after
+                 another on the card, against the whole layer's kernels
+                 (output and every gradient);
+23. the {"kernels": [...]} line, then the contract's last line.
 
-(Phases 16-19 run after 8, phase 20 after 15.)
+(Phases 16-19 and 21 run after 8, phase 22 after 15 and phase 20 after
+22.)
 
 Each served path sets every kernel's launch count to 0 just before it runs
-and reads the counts just after. Any failed check exits non-zero before the
-last line. The script never carries on without a card: it exits non-zero
+and reads the counts just after. The GPU context's build runs a warm-up
+forward (core/functions.py): its launches, counted in each kernel's
+count too, are read apart (``ctx_counts``) and every check holds the
+requests' forwards and the context builds to their own numbers. Any
+failed check exits non-zero before the last line. The script never carries on without a card: it exits non-zero
 and prints no result.
 """
 from __future__ import annotations
@@ -194,8 +213,9 @@ from repro_torch.core.faults import (  # noqa: E402
     BreakerConfig, DbFlap, FaultPlan, LinkDegradation, LoaderFault, NodeCrash, SheddingConfig,
     SlowNode,
 )
+from repro_torch.core import functions as F  # noqa: E402
 from repro_torch.core.functions import (  # noqa: E402
-    _model_function, make_model_function, make_request,
+    _model_function, make_model_function, make_request, warmup_launches,
 )
 from repro_torch.core.profiles import MB  # noqa: E402
 from repro_torch.core.telemetry import STAGES, classify_error  # noqa: E402
@@ -336,10 +356,36 @@ def check(cond, msg: str) -> None:
 def reset_counts() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
+    with F._ctx_lock:
+        F.context_launches.clear()
+        F.context_builds.clear()
 
 
 def counts() -> dict:
     return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def ctx_counts() -> dict:
+    """The launches that context builds' warm-up forwards made since
+    ``reset_counts`` (``counts`` holds them too): they are counted apart
+    from the requests' forwards in every check."""
+    return {name: F.context_launches.get(name, 0) for name in KERNELS}
+
+
+def builds(fn_name: str) -> int:
+    """Context builds of ``fn_name`` since ``reset_counts``."""
+    return F.context_builds.get(fn_name, 0)
+
+
+def minus(a: dict, b: dict) -> dict:
+    return {n: a[n] - b[n] for n in KERNELS}
+
+
+def warmups(cfg, n: int) -> dict:
+    """The launches of ``n`` context builds of ``cfg`` (one warm-up forward
+    of one period each, ``functions.warmup_launches``)."""
+    one = warmup_launches(cfg)
+    return {name: n * one.get(name, 0) for name in KERNELS}
 
 
 def inputs(shape, dtype, seed=0):
@@ -795,12 +841,13 @@ def phase_reduced(phase, arch):
     fn = make_model_function(rt.db, "f", arch=arch, seed=3)
     rt.register_function(fn)
     reqs = [make_request(rt.db, fn, seed=s) for s in (0, 1, 2)]
-    served, per_request = [], []
+    served, per_request, ctx_per_request = [], [], []
     reset_counts()  # -- the main path (reduced) starts here
     for req in reqs:
-        before = counts()
+        before, ctx_before = counts(), ctx_counts()
         served.append(rt.db.fetch(rt.sage_run(req)))
-        per_request.append({n: c - before[n] for n, c in counts().items()})
+        ctx_per_request.append(minus(ctx_counts(), ctx_before))
+        per_request.append(minus(minus(counts(), before), ctx_per_request[-1]))
     launches = counts()  # -- and ends here
     recs = rt.telemetry.records
     warm = [r.warm_stage for r in recs]
@@ -819,11 +866,16 @@ def phase_reduced(phase, arch):
     emit({"phase": phase, "arch": cfg.name, "warm_stage": warm,
           "shared_hits": stats["shared_hits"], "loads": stats["loads"],
           "launches": launches, "launches_per_request": per_request,
+          "context_launches_per_request": ctx_per_request,
           "max_abs_err_vs_cpu_plain": max(errs), "tol": 1e-4,
           "requests": [record(r) for r in recs], "usage_after": usage})
     check(warm == [None, 1, 1], f"{arch}: warm_stage {warm}")
     check(stats["shared_hits"] >= 1, f"{arch}: no shared hit")
-    check(per_request == [want] * 3, f"{arch}: launches per request {per_request} != {want}")
+    check(per_request == [want] * 3, f"{arch}: launches per request's forward {per_request} "
+          f"!= {want}")
+    want_ctx = [warmups(cfg, 1), warmups(cfg, 0), warmups(cfg, 0)]
+    check(ctx_per_request == want_ctx, f"{arch}: the context build's warm-up launched "
+          f"{ctx_per_request} per request, want {want_ctx} (one build, on the cold request)")
     check(max(errs) <= 1e-4, f"{arch}: served logits differ from the CPU forward: {errs}")
     check(usage["device_used"] == usage["host_used"] == 0, f"{arch}: teardown {usage}")
     return launches
@@ -854,15 +906,23 @@ def phase_full(phase, arch, fn_name):
     reset_counts()  # -- the main path (full width) starts here
     t0 = time.monotonic()
     out_keys = [rt.sage_run(reqs[0])]
-    cold_launches = counts()
+    cold_ctx = ctx_counts()
+    cold_launches = minus(counts(), cold_ctx)  # the cold request's forward
     out_keys.append(rt.sage_run(reqs[1]))
     futs = [rt.submit(r) for r in reqs[2:]]
     out_keys += [f.result(timeout=600) for f in futs]
     torch.cuda.synchronize()
     wall_s = time.monotonic() - t0
     launches = counts()  # -- and ends here
+    ctx, n_builds = ctx_counts(), builds(fn_name)
     peak = torch.cuda.max_memory_allocated()
     recs = rt.telemetry.records
+    ctx_obj = rt.engines[fn_name]._shared_ctx
+    context = {"context_build_s": ctx_obj.build_s,
+               "context_reserved_bytes": ctx_obj.reserved_bytes,
+               "context_declared_bytes": fn.context_bytes}
+    del ctx_obj
+    warm_compute = [r.stages["compute"] for r in recs[1:2]]
     stats = dict(rt.daemon.stats)
     served = [rt.db.fetch(k) for k in out_keys]
 
@@ -885,6 +945,9 @@ def phase_full(phase, arch, fn_name):
           "modelled_load_s": modelled_s, "wall_s": wall_s,
           "requests": [record(r) for r in recs], "shared_hits": stats["shared_hits"],
           "loads": stats["loads"], "launches": launches, "cold_launches": cold_launches,
+          "context_launches": ctx, "context_builds": n_builds,
+          **context,
+          "cold_compute_over_warm": recs[0].stages["compute"] / warm_compute[0],
           "max_memory_allocated": peak, "memory_allocated_before": base_alloc,
           "memory_allocated_after_shutdown": after_raw,
           "memory_allocated_after_cublas_workspaces_cleared": after, "usage_after": usage,
@@ -892,9 +955,18 @@ def phase_full(phase, arch, fn_name):
           "served_sample": [float(x) for x in served[0][0]]})
     check(all(r.error is None for r in recs), f"{arch}: a request failed")
     check(len(recs) == 6 and recs[0].warm_stage is None, f"{arch}: cold request")
-    check(cold_launches == want, f"{arch}: cold request launched {cold_launches} != {want}")
-    check(launches == {n: 6 * c for n, c in want.items()},
-          f"{arch}: {launches} launches for 6 requests, want 6 x {want}")
+    check(cold_launches == want, f"{arch}: cold request's forward launched {cold_launches} "
+          f"!= {want}")
+    check(n_builds == 1 and cold_ctx == ctx == warmups(cfg, 1),
+          f"{arch}: {n_builds} context builds launched {cold_ctx} (cold) and {ctx} (all), "
+          f"want one build's {warmups(cfg, 1)}")
+    check(minus(launches, ctx) == {n: 6 * c for n, c in want.items()},
+          f"{arch}: {launches} launches for 6 requests and the context's {ctx}, "
+          f"want 6 x {want} besides the context's")
+    over = recs[0].stages["compute"] / warm_compute[0]
+    check(arch != "qwen2.5-3b" or over <= COLD_MAX_OVER_WARM,
+          f"{arch}: the cold request's compute is {over} x the warm one's: the context "
+          f"build did not carry the first forward's shape-only work")
     check(stats["shared_hits"] >= 5, f"{arch}: shared_hits {stats['shared_hits']}")
     check(all(np.isfinite(s).all() and s.shape == (FULL_BATCH, 8) for s in served),
           f"{arch}: served logits not finite")
@@ -937,7 +1009,7 @@ def phase_gateway():
     t0 = time.monotonic()
     res = quickstart.main(device="cuda")
     wall_s = time.monotonic() - t0
-    qs = counts()  # -- and ends here
+    qs, qs_ctx = counts(), ctx_counts()  # -- and ends here
     cold, warm, db = res["cold"], res["warm"], res["gateway"].runtime.db
     device = str(db.device)
     errs = []
@@ -957,7 +1029,7 @@ def phase_gateway():
           "cold_stages_ms": {k: ms(v) for k, v in cold.stages.items()},
           "warm_stages_ms": {k: ms(v) for k, v in warm.stages.items()},
           "warm_stage": [cold.warm_stage, warm.warm_stage], "shared_hits": hits,
-          "memory_usage_before_shutdown": usage, "launches": qs,
+          "memory_usage_before_shutdown": usage, "launches": qs, "context_launches": qs_ctx,
           "direct_max_abs_err": errs, "served_sample": sample,
           "memory_allocated_before": base_alloc, "memory_allocated_after_shutdown": after_raw,
           "memory_allocated_after_cublas_workspaces_cleared": after})
@@ -966,8 +1038,11 @@ def phase_gateway():
     check(cold.warm_stage is None and warm.warm_stage == 1,
           f"warm_stage {cold.warm_stage}, {warm.warm_stage}")
     check(hits >= 1, f"shared_hits {hits}")
-    check(qs[fa.NAME] == 2 * layers and sum(qs.values()) == qs[fa.NAME],
-          f"quickstart launches {qs}, want {2 * layers} of {fa.NAME}")
+    check(qs_ctx == warmups(cfg, 1), f"quickstart: the context launched {qs_ctx}, want one "
+          f"build's {warmups(cfg, 1)}")
+    fwd = minus(qs, qs_ctx)
+    check(fwd[fa.NAME] == 2 * layers and sum(fwd.values()) == fwd[fa.NAME],
+          f"quickstart launches {qs}, want {2 * layers} of {fa.NAME} besides the context's")
     check(max(errs) == 0.0, f"served output differs from the direct forward: {errs}")
     check(after <= base_alloc, f"device memory not freed: {after} > {base_alloc} bytes")
 
@@ -982,13 +1057,13 @@ def phase_gateway():
     with Gateway(backend="runtime", policy="sage", time_scale=0.05, device="cuda") as gw:
         gw.register(spec)
         tel_rt = gw.replay(workload, pace=0.4)  # arrivals 1 s apart on the wall clock
-    par = counts()  # -- and ends here
+    par, par_ctx = counts(), ctx_counts()  # -- and ends here
     wall_s = time.monotonic() - t0
     recs = {name: sorted(tel.records, key=lambda r: r.arrival_t)
             for name, tel in (("sim", tel_sim), ("runtime", tel_rt))}
     cold_flags = {name: [r.warm_stage is None for r in rs] for name, rs in recs.items()}
     emit({"phase": "gateway", "check": "parity", "wall_s": wall_s, "launches": par,
-          "cold": cold_flags,
+          "context_launches": par_ctx, "cold": cold_flags,
           "e2e_ms": {name: [ms(r.e2e) for r in rs] for name, rs in recs.items()},
           "errors": {name: [r.error for r in rs] for name, rs in recs.items()}})
     for name, rs in recs.items():
@@ -997,7 +1072,8 @@ def phase_gateway():
         check(all(r.deadline_s == 30.0 for r in rs), f"{name}: deadlines")
     check(cold_flags["sim"] == cold_flags["runtime"] == [True, False, False],
           f"warm classification {cold_flags}")
-    check(par[fa.NAME] == 3 * layers, f"parity launches {par}")
+    check(par_ctx == warmups(cfg, 1) and minus(par, par_ctx)[fa.NAME] == 3 * layers,
+          f"parity launches {par}, the context's {par_ctx}")
 
     # 3. a working set that never fits: DataLoadError, within the load timeout
     load_timeout_s = 0.5
@@ -1008,13 +1084,16 @@ def phase_gateway():
         t0 = time.monotonic()
         rec = gw.invoke_async("big").wait(timeout=60.0, strict=False)
         fail_s = time.monotonic() - t0
-    failing = counts()  # -- and ends here
+    failing, failing_ctx = counts(), ctx_counts()  # -- and ends here
     emit({"phase": "gateway", "check": "data_load_error", "device_capacity": 600 * MB,
           "load_timeout_s": load_timeout_s, "resolved_after_s": fail_s, "launches": failing,
+          "context_launches": failing_ctx,
           "error": rec.error,
           "error_class": rec.error_class})
     check(rec.error is not None and "DataLoadError" in rec.error, f"error {rec.error!r}")
     check(fail_s <= load_timeout_s + 1.0, f"resolved after {fail_s} s")
+    check(failing == failing_ctx, f"the failing request launched {failing} besides the "
+          f"context's {failing_ctx}")
 
     # 4. a 2-node ClusterRuntime replaying 4 arrivals
     reset_counts()  # -- the cluster path starts here
@@ -1025,15 +1104,17 @@ def phase_gateway():
         tel = gw.replay(TraceWorkload([(0.02 * i, "f") for i in range(4)]))
         devices = sorted({str(n.db.device) for n in gw.runtime.nodes})
         found = gw.report().find(tel.records[0].request_id) is tel.records[0]
-    clu = counts()  # -- and ends here
+    clu, clu_ctx, clu_builds = counts(), ctx_counts(), builds("f")  # -- and ends here
     emit({"phase": "gateway", "check": "cluster", "n_nodes": 2, "devices": devices,
-          "wall_s": time.monotonic() - t0, "launches": clu,
-          "nodes": [r.node_id for r in tel.records], "e2e_ms": [ms(r.e2e) for r in tel.records],
+          "wall_s": time.monotonic() - t0, "launches": clu, "context_launches": clu_ctx,
+          "context_builds": clu_builds, "nodes": [r.node_id for r in tel.records], "e2e_ms": [ms(r.e2e) for r in tel.records],
           "errors": tel.error_count()})
     check(len(tel.records) == 4 and tel.error_count() == 0, f"cluster records {tel.records}")
     check(found, "the merged cluster view lost its lookup index")
     check(all(d.startswith("cuda") for d in devices), f"cluster nodes on {devices}")
-    check(clu[fa.NAME] == 4 * layers, f"cluster launches {clu}")
+    check(1 <= clu_builds <= 2 and clu_ctx == warmups(cfg, clu_builds)
+          and minus(clu, clu_ctx)[fa.NAME] == 4 * layers,
+          f"cluster launches {clu}, the context's {clu_ctx} in {clu_builds} builds")
     freed_memory()
     return sum(c[fa.NAME] for c in (qs, par, failing, clu))
 
@@ -1071,14 +1152,16 @@ def phase_serve():
         served = serve("qwen2.5-3b", system, requests=SERVE_REQUESTS, rate=SERVE_RATE,
                        time_scale=SERVE_TIME_SCALE, device="cuda")
         wall_s = time.monotonic() - t0
-        launches = counts()  # -- and ends here
+        launches, ctx = counts(), ctx_counts()  # -- and ends here
         after_raw, after = freed_memory()
         tel, usage = served.telemetry, served.usage
+        n_builds = sum(F.context_builds.values())
         runs[system] = {
             "device": served.device, "wall_s": wall_s, "requests": len(tel.records),
             "errors": tel.error_count(), "mean_e2e_ms": ms(tel.mean_e2e()),
             "p99_e2e_ms": ms(tel.p99_e2e()), "warm_share": tel.warm_fraction(),
             "shared_hits": served.stats["shared_hits"], "launches": launches,
+            "context_launches": ctx, "context_builds": n_builds,
             "memory_usage_after_shutdown": usage,
             "memory_allocated_after_shutdown": after_raw,
             "memory_allocated_after_cublas_workspaces_cleared": after}
@@ -1087,7 +1170,10 @@ def phase_serve():
         check(len(tel.records) == SERVE_REQUESTS and tel.error_count() == 0,
               f"serve {system}: {len(tel.records)} records, {tel.error_count()} errors")
         want = {**dict.fromkeys(KERNELS, 0), fa.NAME: SERVE_REQUESTS * layers}
-        check(launches == want, f"serve {system}: launches {launches} != {want}")
+        rcfg = ARCHS["qwen2.5-3b"].reduced()
+        check(n_builds >= 1 and ctx == warmups(rcfg, n_builds) and minus(launches, ctx) == want,
+              f"serve {system}: launches {launches}, want {want} besides the context's "
+              f"{ctx} ({n_builds} builds)")
         check(usage["device_used"] == 0, f"serve {system}: after shutdown {usage}")
         check(after <= base_alloc, f"serve {system}: device memory not freed: "
               f"{after} > {base_alloc} bytes")
@@ -1116,15 +1202,21 @@ def phase_serve_workload():
         tel = example.drive(system, SERVE_WORKLOAD_REQUESTS, SERVE_WORKLOAD_RATE,
                             device="cuda")
         wall_s = time.monotonic() - t0
-        launches = counts()  # -- and ends here
+        launches, ctx = counts(), ctx_counts()  # -- and ends here
+        n_builds = dict(F.context_builds)
         runs[system] = {"requests": len(tel.records), "errors": tel.error_count(),
                         "mean_e2e_ms": ms(tel.mean_e2e()), "p99_e2e_ms": ms(tel.p99_e2e()),
-                        "wall_s": wall_s, "launches": launches}
+                        "wall_s": wall_s, "launches": launches, "context_launches": ctx,
+                        "context_builds": n_builds}
         check(len(tel.records) == SERVE_WORKLOAD_REQUESTS and tel.error_count() == 0,
               f"serve_workload {system}: {len(tel.records)} records, "
               f"{tel.error_count()} errors")
         want = {k: sum(per_fn[r.function][k] for r in tel.records) for k in KERNELS}
-        check(launches == want, f"serve_workload {system}: launches {launches} != {want}")
+        want_ctx = {k: sum(warmups(ARCHS[s.arch].reduced(), n_builds.get(s.name, 0))[k]
+                           for s in example.SPECS) for k in KERNELS}
+        check(ctx == want_ctx and minus(launches, ctx) == want,
+              f"serve_workload {system}: launches {launches}, want {want} besides the "
+              f"context's {ctx} (want {want_ctx} for builds {n_builds})")
         for name, n in launches.items():
             total[name] += n
     freed_memory()
@@ -1203,7 +1295,7 @@ def phase_exit_ladder():
                        "e2e_ms": ms(rec.e2e), "gpu_ctx_ms": ms(rec.stages["gpu_ctx"]),
                        "gpu_data_ms": ms(rec.stages["gpu_data"]), "error": rec.error})
     wall_s = time.monotonic() - t0
-    launches = counts()  # -- and ends here
+    launches, ctx, n_builds = counts(), ctx_counts(), builds("ladder")  # -- and ends here
     usage = rt.drain()
     rt.shutdown()
     del rt, fn, eng
@@ -1218,7 +1310,8 @@ def phase_exit_ladder():
           "cold": {"e2e_ms": ms(cold.e2e), "stages_ms": {s: ms(v) for s, v in cold.stages.items()}},
           "stages": stages, "stage2_real_drop_bytes": drop2,
           "stage2_drop_share_of_weights": drop2 / weights, "stage2_hit_real_copy_bytes": copy2,
-          "stage2_logits_equal_cold": same, "launches": launches, "usage_after": usage,
+          "stage2_logits_equal_cold": same, "launches": launches, "context_launches": ctx,
+          "context_builds": n_builds, "usage_after": usage,
           "memory_allocated_before": base_alloc, "memory_allocated_after_shutdown": after_raw,
           "memory_allocated_after_cublas_workspaces_cleared": after})
     check(cold.error is None and cold.warm_stage is None, f"cold request {cold.error}")
@@ -1244,10 +1337,264 @@ def phase_exit_ladder():
           f"the stage-3 hit did not rebuild the context: {st[3]}")
     check(same, "the stage-2 hit's logits differ from the cold request's")
     want = {**dict.fromkeys(KERNELS, 0), fa.NAME: 5 * cfg.num_attn_layers}
-    check(launches == want, f"exit ladder launches {launches} != {want}")
+    # SAGE keeps its compiled context across stage 3 (the stage-3 and
+    # stage-4 hits re-reserve its memory but reuse it), so one build
+    check(n_builds == 1 and ctx == warmups(cfg, 1) and minus(launches, ctx) == want,
+          f"exit ladder launches {launches}, want {want} besides {n_builds} context builds' "
+          f"{ctx}")
     check(usage["device_used"] == usage["host_used"] == 0, f"exit ladder teardown {usage}")
     check(after <= base_alloc, f"exit ladder: device memory not freed: {after} > {base_alloc}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# cold set-up: SAGE's parallel setup against FixedGSL's serial one
+# ---------------------------------------------------------------------------
+
+COLD_RUNS = 3
+COLD_MAX_OVER_WARM = 1.15  # a cold request's compute stage over the warm median
+
+
+def cold_runs(system: str) -> dict:
+    """In this process (``chip_smoke.py --cold-runs SYSTEM``): COLD_RUNS cold
+    requests of the full-width qwen2.5-3b (6.17 GB, bf16, seed 0, 4 x 1024)
+    under ``system``, each on a new SageRuntime over one database (a new
+    engine, so its context is built anew), each followed by one warm
+    request. The first is the process's first forward at full width.
+    Returns the records, the context builds' reserved bytes and the
+    launches."""
+    cfg = ARCHS["qwen2.5-3b"]
+    db = Database(device="cuda")
+    fn = _model_function(db, "cold", cfg, batch=FULL_BATCH, seq=FULL_SEQ, seed=0)
+    runs = []
+    reset_counts()  # -- the cold-setup path starts here
+    for _ in range(COLD_RUNS):
+        rt = SageRuntime(system, time_scale=SERVE_TIME_SCALE, load_timeout_s=120.0,
+                         exit_ttl=600.0, device="cuda", database=db)
+        rt.sage_init()
+        rt.register_function(fn)
+        for s in (0, 1):  # a request's e2e counts from its making
+            rt.sage_run(make_request(db, fn, batch=FULL_BATCH, seq=FULL_SEQ,
+                                     vocab=cfg.vocab_size, seed=s))
+        eng = rt.engines["cold"]
+        ctx = eng._shared_ctx or next(i.gpu_ctx for i in eng.instances if i.gpu_ctx)
+        runs.append({"cold": record(rt.telemetry.records[0]),
+                     "warm": record(rt.telemetry.records[1]),
+                     "context_reserved_bytes": ctx.reserved_bytes})
+        del eng, ctx
+        rt.drain()
+        rt.shutdown()
+        del rt
+    return {"system": system, "runs": runs, "launches": counts(),
+            "context_launches": ctx_counts(), "context_builds": builds("cold"),
+            "declared_context_bytes": fn.context_bytes}
+
+
+def phase_cold_setup():
+    """The full-width qwen2.5-3b served cold COLD_RUNS times under SAGE and
+    under FixedGSL (``cold_runs``), each policy in a fresh process of its
+    own, so that its first cold request pays what a new worker process
+    pays. Prints each cold request's gpu_ctx, gpu_data, compute and e2e,
+    their medians and SAGE / FixedGSL. Checks: every request served, cold
+    then warm; one context build and its launches per cold run, counted
+    apart from the requests' forwards; every cold request's compute within
+    COLD_MAX_OVER_WARM x the policy's warm median (the context carries the
+    first forward's shape-only work). Returns the launches."""
+    out, total = {}, dict.fromkeys(KERNELS, 0)
+    cfg = ARCHS["qwen2.5-3b"]
+    for system in ("sage", "fixedgsl"):
+        t0 = time.monotonic()
+        res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--cold-runs", system],
+                             capture_output=True, text=True, timeout=600, cwd=str(ROOT))
+        check(res.returncode == 0, f"cold_setup {system}: {res.stdout[-2000:]} "
+              f"{res.stderr[-4000:]}")
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+        got["seconds"] = time.monotonic() - t0
+        out[system] = got
+        for name, n in got["launches"].items():
+            total[name] += n
+    stages = ("gpu_ctx", "gpu_data", "compute")
+    summary = {}
+    for system, got in out.items():
+        colds = [r["cold"] for r in got["runs"]]
+        warm = statistics.median(r["warm"]["stages_s"]["compute"] for r in got["runs"])
+        summary[system] = {
+            "cold_ms": [{**{k: ms(c["stages_s"][k]) for k in stages}, "e2e": ms(c["e2e_s"])}
+                        for c in colds],
+            "median_ms": {**{k: ms(statistics.median(c["stages_s"][k] for c in colds))
+                             for k in stages},
+                          "e2e": ms(statistics.median(c["e2e_s"] for c in colds))},
+            "warm_compute_median_ms": ms(warm),
+            "cold_compute_over_warm": [c["stages_s"]["compute"] / warm for c in colds],
+            "context_reserved_bytes": [r["context_reserved_bytes"] for r in got["runs"]],
+            "declared_context_bytes": got["declared_context_bytes"],
+            "context_builds": got["context_builds"], "launches": got["launches"],
+            "context_launches": got["context_launches"], "seconds": got["seconds"]}
+    ratio = summary["sage"]["median_ms"]["e2e"] / summary["fixedgsl"]["median_ms"]["e2e"]
+    first = (summary["sage"]["cold_ms"][0]["e2e"] / summary["fixedgsl"]["cold_ms"][0]["e2e"])
+    emit({"phase": "cold_setup", "arch": cfg.name, "batch": FULL_BATCH, "seq": FULL_SEQ,
+          "time_scale": SERVE_TIME_SCALE, "runs": COLD_RUNS, "systems": summary,
+          "sage_over_fixedgsl_median_e2e": ratio,
+          "sage_over_fixedgsl_first_cold_e2e": first})
+    for system, got in out.items():
+        sm = summary[system]
+        check(all(r["cold"]["error"] is None and r["warm"]["error"] is None
+                  and r["cold"]["warm_stage"] is None and r["warm"]["warm_stage"] == 1
+                  for r in got["runs"]), f"cold_setup {system}: {got['runs']}")
+        check(got["context_builds"] == COLD_RUNS
+              and got["context_launches"] == warmups(cfg, COLD_RUNS)
+              and minus(got["launches"], got["context_launches"])
+              == {**dict.fromkeys(KERNELS, 0), fa.NAME: 2 * COLD_RUNS * cfg.num_attn_layers},
+              f"cold_setup {system}: launches {got['launches']}, want {2 * COLD_RUNS} "
+              f"forwards' besides {got['context_builds']} context builds' "
+              f"{got['context_launches']}")
+        check(max(sm["cold_compute_over_warm"]) <= COLD_MAX_OVER_WARM,
+              f"cold_setup {system}: a cold request's compute is "
+              f"{sm['cold_compute_over_warm']} x the warm median")
+        check(min(c["gpu_ctx"] for c in sm["cold_ms"]) > 0, f"cold_setup {system}: no context")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# the rank bodies of the sharded attention and Mamba2 block, on one card
+# ---------------------------------------------------------------------------
+
+RANK_TP = 16
+RANK_ATTN_ARCH = "phi4-mini-3.8b"   # 24 query heads: they do not divide by 16
+RANK_MAMBA_ARCH = "mamba2-780m"     # 48 SSD heads: 3 a rank at 16
+
+
+def rank_attention():
+    """``distributed.local``'s attention split by query rows, as each of
+    RANK_TP ranks runs it, one after another on this card: one full-width
+    phi4-mini attention layer's q, k, v (bf16, 4 x 1024, causal). The
+    ranks' rows put together are held against K1 run whole, their
+    gradients (``rank_rows_bwd``, summed) against K1's backward run whole.
+    Returns the record and the rank bodies' launches."""
+    cfg = ARCHS[RANK_ATTN_ARCH]
+    shape = (FULL_BATCH, FULL_SEQ, FULL_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+             True)
+    q, k, v, _, _, do = attention_bwd_inputs(shape, torch.bfloat16)
+    scale = cfg.head_dim ** -0.5
+    out = torch.empty_like(q)
+    grads = [torch.zeros(t.shape, dtype=torch.float32, device="cuda") for t in (q, k, v)]
+    torch.cuda.synchronize()
+    reset_counts()  # -- the rank bodies' path starts here
+    t0 = time.monotonic()
+    for r in range(RANK_TP):
+        mine = dlocal.rank_rows(q, k, v, causal=True, scale=scale, use_kernel=True, rank=r,
+                                t=RANK_TP)
+        for first, rows, o, _ in mine:
+            out[:, first:first + rows] = o
+        for acc, g in zip(grads, dlocal.rank_rows_bwd(q, k, v, mine, do, causal=True,
+                                                      scale=scale, use_kernel=True)):
+            acc += g.float()
+    torch.cuda.synchronize()
+    ranks_s = time.monotonic() - t0
+    launches = counts()  # -- and ends here
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    t0 = time.monotonic()
+    whole = ops.flash_attention(*ins, causal=True, scale=scale, use_kernel=True)
+    whole.backward(do)
+    torch.cuda.synchronize()
+    whole_s = time.monotonic() - t0
+    out_err, out_ok = compare([out], [whole], TOL[torch.bfloat16])
+    grad_errs = [(g - t.grad.float()).abs().max().item() for g, t in zip(grads, ins)]
+    grad_tols = [grad_tol(torch.bfloat16, t.grad) for t in ins]
+    calls = sum(len(dlocal.key_parts(f, c, FULL_SEQ, True))
+                for r in dlocal.row_chunks(FULL_SEQ, RANK_TP, True) for f, c in r if c)
+    rec = {"arch": cfg.name, "tp": RANK_TP, "shape": list(shape), "dtype": "bfloat16",
+           "out_max_abs_err": out_err, "tol": TOL[torch.bfloat16],
+           "grad_max_abs_err": dict(zip(("dq", "dk", "dv"), grad_errs)),
+           "grad_tol": dict(zip(("dq", "dk", "dv"), grad_tols)), "launches": launches,
+           "k1_calls": calls, "ranks_s": ranks_s, "whole_s": whole_s}
+    check(out_ok, f"rank attention: the ranks' rows differ from K1 whole by {out_err}")
+    check(all(e <= t for e, t in zip(grad_errs, grad_tols)),
+          f"rank attention: gradients {grad_errs} past {grad_tols}")
+    check(launches == {**dict.fromkeys(KERNELS, 0), fa.NAME: calls, fab.NAME: calls},
+          f"rank attention: launches {launches}, want {calls} K1 and K1 backward calls")
+    return rec, launches
+
+
+def rank_mamba():
+    """``distributed.local.mamba_mixer``'s rank bodies, one after another on
+    this card: one full-width mamba2-780m block (bf16, 4 x 1024), each of
+    RANK_TP ranks multiplying its stored in_proj columns, all of them put
+    together as the all-gather does, each rank's ``mamba2.gated`` on its
+    heads, the sum of squares summed over ranks, each rank's
+    ``norm_out``; the partial outputs summed and their gradients held
+    against the block run whole (K3 and its backward on all 48 heads).
+    Returns the record and the rank bodies' launches."""
+    from repro_torch.models import mamba2 as M
+
+    cfg = ARCHS[RANK_MAMBA_ARCH]
+    t = RANK_TP
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = M.init_mamba(cfg, gen, "cuda")
+    x = torch.randn((FULL_BATCH, FULL_SEQ, cfg.d_model), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    ct = torch.bfloat16
+    dr = cfg.ssm_d_inner // t
+
+    def leaves():
+        return {k: v.detach().clone().requires_grad_() for k, v in p.items()}, \
+            x.detach().clone().requires_grad_()
+
+    pr, xr = leaves()
+    torch.cuda.synchronize()
+    reset_counts()  # -- the rank bodies' path starts here
+    t0 = time.monotonic()
+    w = pr["in_proj"].to(ct)
+    c = w.shape[1] // t
+    full = torch.cat([xr.to(ct) @ w[:, r * c:(r + 1) * c] for r in range(t)], dim=-1)
+    gs = [M.gated(cfg, pr, xr, rank=r, ranks=t,
+                  proj=M._take(full, M.own_columns(cfg, r, t), -1))[0] for r in range(t)]
+    sumsq = sum(M.sum_squares(g) for g in gs)
+    out = sum(M.norm_out(cfg, {**pr, "out_proj": pr["out_proj"][r * dr:(r + 1) * dr]}, g,
+                         sumsq, rank=r, ranks=t).float() for r, g in enumerate(gs))
+    out.backward(dy.float())
+    torch.cuda.synchronize()
+    ranks_s = time.monotonic() - t0
+    launches = counts()  # -- and ends here
+    pw, xw = leaves()
+    t0 = time.monotonic()
+    whole = M.mixer(cfg, pw, xw)
+    whole.backward(dy)
+    torch.cuda.synchronize()
+    whole_s = time.monotonic() - t0
+    out_err, out_ok = compare([out], [whole], TOL[torch.bfloat16])
+    names = ["x", *p]
+    got = [xr.grad, *(pr[k].grad for k in p)]
+    want = [xw.grad, *(pw[k].grad for k in p)]
+    grad_errs = {n: (a.float() - b.float()).abs().max().item() for n, a, b in zip(names, got, want)}
+    grad_tols = {n: grad_tol(torch.bfloat16, b) for n, b in zip(names, want)}
+    rec = {"arch": cfg.name, "tp": t, "shape": [FULL_BATCH, FULL_SEQ, cfg.d_model],
+           "dtype": "bfloat16", "out_max_abs_err": out_err,
+           "tol": TOL[torch.bfloat16], "grad_max_abs_err": grad_errs, "grad_tol": grad_tols,
+           "launches": launches, "ranks_s": ranks_s, "whole_s": whole_s}
+    check(out_ok, f"rank mamba: the ranks' summed outputs differ from the block by {out_err}")
+    check(all(grad_errs[n] <= grad_tols[n] for n in names),
+          f"rank mamba: gradients {grad_errs} past {grad_tols}")
+    check(launches == {**dict.fromkeys(KERNELS, 0), ssd.NAME: t, ssdb.NAME: t},
+          f"rank mamba: launches {launches}, want {t} K3 and K3 backward calls")
+    return rec, launches
+
+
+def phase_rank_bodies():
+    """The rank bodies of the attention split by query rows and of the
+    Mamba2 block split by heads (``rank_attention``, ``rank_mamba``).
+    Returns their launches."""
+    total = dict.fromkeys(KERNELS, 0)
+    recs = {}
+    for name, fn in (("attention", rank_attention), ("mamba", rank_mamba)):
+        t0 = time.monotonic()
+        recs[name], launches = fn()
+        recs[name]["seconds"] = time.monotonic() - t0
+        for k, n in launches.items():
+            total[k] += n
+    emit({"phase": "rank_bodies", **recs, "launches": total})
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1373,13 +1720,13 @@ def control_crash_drain():
 
     # the crash, while the third request's forward is in flight
     req, fut = request("crash", 2)
-    k1 = fa.launches
+    k1 = fa.launches - F.context_launches[fa.NAME]  # a context build's are not the forward's
     switch = sys.getswitchinterval()
     sys.setswitchinterval(1e-4)  # let this thread watch the forward's launches closely
     try:
-        check(settle(lambda: fa.launches - k1 >= CRASH_AT_LAYER or fut.done(), 600.0),
-              "the third request never reached its forward")
-        at_layer = fa.launches - k1
+        check(settle(lambda: fa.launches - F.context_launches[fa.NAME] - k1 >= CRASH_AT_LAYER
+                     or fut.done(), 600.0), "the third request never reached its forward")
+        at_layer = fa.launches - F.context_launches[fa.NAME] - k1
         done_at_crash = fut.done()
         pre_crash = torch.cuda.memory_allocated()
         t_crash = time.monotonic()
@@ -1403,7 +1750,7 @@ def control_crash_drain():
     served.append(rec)
     rise = mem("cold_on_A_again") - (before_drain - drain_drop)
     wall_s = time.monotonic() - t_path
-    launches = counts()  # -- and ends here
+    launches, ctx, n_builds = counts(), ctx_counts(), builds("cp")  # -- and ends here
     usage = a.drain()
     cluster.shutdown()
     after_raw, after = freed_memory()
@@ -1428,7 +1775,8 @@ def control_crash_drain():
                   "A_usage_after": usage_a},
         "drain": {"freed_bytes": drain_drop, "freed_share_of_weights": drain_drop / weights},
         "cold_on_A_again": {"real_copy_bytes": rise, "gpu_data_ms": runs[-1]["stages_ms"]["gpu_data"]},
-        "direct_max_abs_err": errs, "launches": launches, "usage_after": usage,
+        "direct_max_abs_err": errs, "launches": launches, "context_launches": ctx,
+        "context_builds": n_builds, "usage_after": usage,
         "memory_allocated_before": base_alloc, "memory_allocated_after_shutdown": after_raw,
         "memory_allocated_after_cublas_workspaces_cleared": after,
         "memory_allocated_after_comparisons": final}
@@ -1453,7 +1801,9 @@ def control_crash_drain():
     check(after <= base_alloc and final <= base_alloc,
           f"control_plane: device memory not freed: {after}, {final} > {base_alloc}")
     want = {**dict.fromkeys(KERNELS, 0), fa.NAME: 5 * layers}
-    check(launches == want, f"control_plane: crash-and-drain launches {launches} != {want}")
+    check(n_builds >= 2 and ctx == warmups(cfg, n_builds) and minus(launches, ctx) == want,
+          f"control_plane: crash-and-drain launches {launches}, want {want} besides "
+          f"{n_builds} context builds' {ctx} (A's and B's at least)")
     return launches, report
 
 
@@ -1477,7 +1827,7 @@ def control_chaos():
     t0 = time.monotonic()
     tel = gw.replay(workload, pace=1.0, timeout=120.0)
     wall_s = time.monotonic() - t0
-    launches = counts()  # -- and ends here
+    launches, ctx = counts(), ctx_counts()  # -- and ends here
     stats = gw.resilience_stats()
     recs = [r for r in tel.snapshot() if not r.dropped]
     dead = {n.node_id: n.memory_usage() for n in gw._nodes if not n.healthy}
@@ -1502,7 +1852,7 @@ def control_chaos():
         "goodput": 1.0 - tel.slo_miss_rate(), "error_counts": tel.error_counts(),
         "slo_by_priority": {p: c["attainment"] for p, c in sorted(tel.slo_by_priority().items())},
         "resilience": stats, "dead_nodes_usage": dead, "direct_max_abs_err": errs,
-        "launches": launches, "usage_after": usage, "memory_allocated_before": base_alloc,
+        "launches": launches, "context_launches": ctx, "usage_after": usage, "memory_allocated_before": base_alloc,
         "memory_allocated_after_shutdown": after_raw,
         "memory_allocated_after_cublas_workspaces_cleared": after}
     check(stats["node_crashes"] == 3, f"chaos: {stats['node_crashes']} node crashes")
@@ -1512,7 +1862,9 @@ def control_chaos():
     check(all(u == dict.fromkeys(u, 0) for u in dead.values()), f"chaos: dead nodes {dead}")
     check(set(errs) == set(CHAOS_CLASSES) and max(errs.values()) <= TOL[torch.float32],
           f"chaos: served outputs against the direct forward {errs}")
-    check(launches[fa.NAME] > 0 and launches[ssd.NAME] > 0, f"chaos: launches {launches}")
+    fwd = minus(launches, ctx)
+    check(fwd[fa.NAME] > 0 and fwd[ssd.NAME] > 0,
+          f"chaos: launches {launches}, the context's {ctx}")
     check(after <= base_alloc, f"chaos: device memory not freed: {after} > {base_alloc}")
     return launches, report
 
@@ -1537,7 +1889,7 @@ def control_hedge_batch():
     t0 = time.monotonic()
     tel = gw.replay(PoissonWorkload("h", HEDGE_RATE, HEDGE_WINDOW_S, seed=6), timeout=60.0)
     hedge_s = time.monotonic() - t0
-    hedge_launches = counts()  # -- and ends here
+    hedge_launches, hedge_ctx = counts(), ctx_counts()  # -- and ends here
     stats = gw.resilience_stats()
     recs = tel.snapshot()
     losers = [r for r in recs if r.dropped]
@@ -1562,7 +1914,7 @@ def control_hedge_batch():
     t0 = time.monotonic()
     tel = gw.replay(TraceWorkload([Arrival(0.0, "b") for _ in range(4)]), timeout=60.0)
     batch_s = time.monotonic() - t0
-    batch_launches = counts()  # -- and ends here
+    batch_launches, batch_ctx, batch_builds = counts(), ctx_counts(), builds("b")  # -- and ends here
     cstats = gw.compute_stats()
     recs = [r for r in tel.snapshot() if not r.dropped]
     node = next(n for n in gw._nodes if n.node_id == recs[0].node_id)
@@ -1579,11 +1931,13 @@ def control_hedge_batch():
                     "stats": stats, "losers": [{"node": r.node_id, "error": r.error}
                                                for r in losers],
                     "e2e_p99_ms": ms(max(r.e2e for r in kept)), "launches": hedge_launches,
+                    "context_launches": hedge_ctx,
                     "usage_after": hedge_usage, "memory_allocated_after": hedge_after},
         "batching": {"wall_s": batch_s, "compute_stats": cstats,
                      "batch_sizes": [r.batch_size for r in recs],
                      "nodes": [r.node_id for r in recs], "direct_max_abs_err": errs,
-                     "launches": batch_launches,
+                     "launches": batch_launches, "context_launches": batch_ctx,
+                     "context_builds": batch_builds,
                      "k1_per_forward": per_forward[fa.NAME], "usage_after": batch_usage},
         "memory_allocated_before": base_alloc, "memory_allocated_after_shutdown": after_raw,
         "memory_allocated_after_cublas_workspaces_cleared": after}
@@ -1595,8 +1949,10 @@ def control_hedge_batch():
           f"batching: compute_stats {cstats}")
     check(len(errs) == 4 and max(errs) <= TOL[torch.float32],
           f"batching: served against the direct forward {errs}")
-    check(batch_launches == {n: 4 * c for n, c in per_forward.items()},
-          f"batching: launches {batch_launches}, want 4 x {per_forward}")
+    check(batch_builds == 1 and batch_ctx == warmups(cfg, 1)
+          and minus(batch_launches, batch_ctx) == {n: 4 * c for n, c in per_forward.items()},
+          f"batching: launches {batch_launches}, want 4 x {per_forward} besides "
+          f"{batch_builds} context builds' {batch_ctx}")
     check(all(u == dict.fromkeys(u, 0) for u in batch_usage), f"batching: leaked {batch_usage}")
     check(after <= base_alloc, f"batching: device memory not freed: {after} > {base_alloc}")
     return {n: hedge_launches[n] + batch_launches[n] for n in KERNELS}, report
@@ -2757,8 +3113,8 @@ def run_phases(smi, timed, seconds, t_start, dryrun_job):
                                   "gateway", "prefill", "decode", "moe_full", "moe_prefill",
                                   "moe_decode", "whisper_prefill", "whisper_decode",
                                   "zoo_reduced", "train", "train_reduced", "train_mamba",
-                                  "cells", "serve", "serve_workload", "exit_ladder",
-                                  "control_plane", "analysis"),
+                                  "cells", "rank_bodies", "serve", "serve_workload",
+                                  "exit_ladder", "cold_setup", "control_plane", "analysis"),
                                  0)
              for name in KERNELS}
 
@@ -2775,6 +3131,7 @@ def run_phases(smi, timed, seconds, t_start, dryrun_job):
     add("serve", timed("serve", phase_serve))
     add("serve_workload", timed("serve_workload", phase_serve_workload))
     add("exit_ladder", timed("exit_ladder", phase_exit_ladder))
+    add("cold_setup", timed("cold_setup", phase_cold_setup))
     add("control_plane", timed("control_plane", phase_control_plane))
     timed("decode", phase_decode, "qwen2.5-3b", paths)
     timed("mamba_decode", phase_decode, "mamba2-780m", paths)
@@ -2789,6 +3146,7 @@ def run_phases(smi, timed, seconds, t_start, dryrun_job):
     add("train_mamba", timed("train_mamba", phase_train, MAMBA_TRAIN_ARCH, "train_mamba"))
     timed("train_grad_check_mamba", train_grad_check, MAMBA_TRAIN_ARCH)
     add("cells", timed("cells", phase_cells, dryrun_job))
+    add("rank_bodies", timed("rank_bodies", phase_rank_bodies))
     add("analysis", timed("analysis", phase_analysis))
     main_path = {fa.NAME: "full_width", fab.NAME: "train", dec.NAME: "decode",
                  ssd.NAME: "mamba_full", ssdb.NAME: "train_mamba"}
@@ -2809,7 +3167,10 @@ def run_phases(smi, timed, seconds, t_start, dryrun_job):
                        (ssd.NAME, "train_mamba"), (ssd.NAME, "train_reduced"),
                        (ssdb.NAME, "train_reduced"), (fa.NAME, "serve"),
                        (fa.NAME, "serve_workload"), (ssd.NAME, "serve_workload"),
-                       (fa.NAME, "exit_ladder"), (fa.NAME, "control_plane"),
+                       (fa.NAME, "exit_ladder"), (fa.NAME, "cold_setup"),
+                       (fa.NAME, "rank_bodies"), (fab.NAME, "rank_bodies"),
+                       (ssd.NAME, "rank_bodies"), (ssdb.NAME, "rank_bodies"),
+                       (fa.NAME, "control_plane"),
                        (ssd.NAME, "control_plane"), (fa.NAME, "analysis"),
                        (fab.NAME, "analysis"), (dec.NAME, "analysis"),
                        *((name, "cells") for name in KERNELS)):
@@ -2832,4 +3193,7 @@ def run_phases(smi, timed, seconds, t_start, dryrun_job):
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cold-runs"]:  # one policy's cold runs, for phase_cold_setup
+        print(json.dumps(cold_runs(sys.argv[2])), flush=True)
+    else:
+        main()

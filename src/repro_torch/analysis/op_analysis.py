@@ -23,6 +23,9 @@ returns a report with the keys ``roofline.roofline_from_report`` reads:
                         per-rank traffic estimate with ring factors, as
                         ``hlo_analysis`` does;
 * ``by_op``          -- count, flops and bytes per aten op;
+* ``by_product``     -- the same per product op and operand shapes
+                        (``"aten.mm (4096, 1536) @ (1536, 6448)"``), the
+                        products' ``by_op`` rows split by shape;
 * ``by_kernel``      -- calls, flops and bytes per hand kernel.
 
 An elementwise op (one PyTorch tags ``pointwise``) counts one flop per
@@ -40,7 +43,9 @@ them. ``kernels.ops`` counts each call of ``flash_attention``,
 ``decode_attention`` and ``ssd_scan`` here as one unit of work, priced by
 ``roofline``'s formulas (``attention_bound_ms``, ``decode_bound_ms`` with
 the call's lengths, ``ssd_bound_ms``), and each of their backwards as
-another (``attention_bwd_bound_ms``, ``ssd_bwd_bound_ms``). The aten ops
+another (``attention_bwd_bound_ms``, ``ssd_bwd_bound_ms``); so are
+``flash_attention_lse`` (a forward) and ``flash_attention_bwd`` (a
+backward), which attention split by query rows calls directly. The aten ops
 inside a unit, the plain versions' included, are not counted, so a step
 gives the same report whether the kernels or the plain versions run, on
 the CPU and on the card. A unit's outputs (and its backward's gradients)
@@ -138,6 +143,12 @@ def _tensors(tree):
     return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
+def _product_key(packet, args) -> str:
+    """A product's op and its two operands' shapes."""
+    a, b = (args[1], args[2]) if packet in (aten.addmm, aten.baddbmm) else (args[0], args[1])
+    return f"{packet} {tuple(a.shape)} @ {tuple(b.shape)}"
+
+
 def _product_flops(packet, args, out) -> float:
     if packet in (aten.mm, aten.bmm):
         return 2.0 * out.numel() * args[0].shape[-1]
@@ -164,6 +175,12 @@ def _attention_work(q, k, v, *, causal=True, **_) -> Dict[str, Work]:
             "flash_attention_bwd": roofline.attention_bwd_bound_ms(shape, q.dtype)[2:]}
 
 
+def _attention_bwd_work(q, k, v, o, lse, do, *, causal=True, **_) -> Dict[str, Work]:
+    shape = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+             bool(causal))
+    return {"flash_attention_bwd": roofline.attention_bwd_bound_ms(shape, q.dtype)[2:]}
+
+
 def _decode_work(q, k_cache, v_cache, lengths, **_) -> Dict[str, Work]:
     B, L, Hkv, Dh = k_cache.shape
     # what this call's data needs; a dry-run's lengths (meta) hold no data,
@@ -181,6 +198,7 @@ def _ssd_work(x, dt, A, Bm, Cm, *, chunk=128, **_) -> Dict[str, Work]:
 
 UNIT_WORK: Dict[str, Callable[..., Dict[str, Work]]] = {
     "flash_attention": _attention_work,
+    "flash_attention_bwd": _attention_bwd_work,
     "decode_attention": _decode_work,
     "ssd_scan": _ssd_work,
 }
@@ -201,6 +219,7 @@ class OpReport:
     collectives: Dict[str, float] = field(default_factory=dict)    # collective -> operand bytes
     collective_counts: Dict[str, int] = field(default_factory=dict)
     by_op: Dict[str, Dict[str, float]] = field(default_factory=dict)
+    by_product: Dict[str, Dict[str, float]] = field(default_factory=dict)
     by_kernel: Dict[str, Dict[str, float]] = field(default_factory=dict)
 
     def as_dict(self) -> dict:
@@ -214,6 +233,7 @@ class OpReport:
             "collectives": dict(self.collectives),
             "collective_counts": dict(self.collective_counts),
             "by_op": {k: dict(v) for k, v in self.by_op.items()},
+            "by_product": {k: dict(v) for k, v in self.by_product.items()},
             "by_kernel": {k: dict(v) for k, v in self.by_kernel.items()},
         }
 
@@ -373,10 +393,14 @@ class _Counter(TorchDispatchMode):
         fusable = torch.Tag.pointwise in func.tags or packet in _COPIES
         rep = self.report
         with self._lock:
-            row = rep.by_op.setdefault(str(packet), {"count": 0, "flops": 0.0, "bytes": 0.0})
-            row["count"] += 1
-            row["flops"] += flops
-            row["bytes"] += nbytes
+            rows = [rep.by_op.setdefault(str(packet), {"count": 0, "flops": 0.0, "bytes": 0.0})]
+            if packet in _PRODUCTS:
+                rows.append(rep.by_product.setdefault(_product_key(packet, args),
+                                                      {"count": 0, "flops": 0.0, "bytes": 0.0}))
+            for row in rows:
+                row["count"] += 1
+                row["flops"] += flops
+                row["bytes"] += nbytes
             rep.flops += flops
             rep.dot_flops += dot
             rep.hbm_bytes += nbytes

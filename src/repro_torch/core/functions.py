@@ -1,16 +1,36 @@
 """Builders turning model-zoo architectures into serverless GPUFunctions.
 
-The real runtime serves *actual* models: the GPU context is the loaded
-kernel library (built once per process from ``kernels/csrc``) plus the
-forward callable, weights are a real dict of tensors fetched from the
-database, compute is the real forward pass with the hand-written kernels
-on the card (flash attention for attention mixers, the SSD scan for Mamba2
-mixers). Declared sizes (A100-scale, from paper Table 2 profiles
-or the arch's true byte count) drive the brokered transfer times and memory
-accounting.
+The real runtime serves *actual* models: weights are a real dict of
+tensors fetched from the database, compute is the real forward pass with
+the hand-written kernels on the card (flash attention for attention
+mixers, the SSD scan for Mamba2 mixers). Declared sizes (A100-scale, from
+paper Table 2 profiles or the arch's true byte count) drive the brokered
+transfer times and memory accounting.
+
+The GPU context is the JAX package's AOT compile at the request's shapes
+carried over to eager PyTorch: the kernel libraries are built or loaded,
+then a warm-up forward runs at the request's (batch, seq) on zero-filled
+weights of ONE period of layers plus the embedding and the unembedding
+(every period has the same shapes), and its results are dropped. That
+pays, before the weights are on the card, what the first forward would
+otherwise pay on its critical path: the lazy loads of every kernel module
+the forward launches, the cuBLAS handle and GEMM choices at the
+forward's shapes, and the caching allocator's first blocks for the
+activations. It reads only ``cfg`` and the shapes, never the weights
+(under SAGE they are still loading), so it overlaps the load. The
+warm-up's buffers go back to the caching allocator when it ends (nothing
+stays allocated for the context) and serve the forward's activations;
+the bytes the allocator then holds in reserve beyond what it held before
+are ``ModelContext.reserved_bytes``, beside the declared
+``GPUFunction.context_bytes``. The warm-up's kernel launches are counted
+apart in ``context_launches``.
 """
 from __future__ import annotations
 
+import dataclasses
+import threading
+import time
+from collections import Counter
 from typing import Optional
 
 import numpy as np
@@ -25,6 +45,13 @@ from repro_torch.data.database import Database
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.models import forward, init_params
+
+#: kernel launches made by context builds' warm-up forwards in this process,
+#: by kernel name (also counted in each kernel's own ``launches``), and
+#: the context builds, by function name
+context_launches: Counter = Counter()
+context_builds: Counter = Counter()
+_ctx_lock = threading.Lock()
 
 
 def _leaves(tree):
@@ -51,6 +78,61 @@ def _host_params(cfg: ModelConfig, seed: int, device: torch.device) -> dict:
         return tree.cpu()
 
     return to_host(params)
+
+
+def warmup_config(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` cut to one period of layers: the warm-up forward's model."""
+    return dataclasses.replace(cfg, num_layers=cfg.period_len)
+
+
+def warmup_launches(cfg: ModelConfig) -> dict:
+    """The kernel launches of one warm-up forward of ``cfg`` on the card."""
+    one = warmup_config(cfg)
+    return {_fa.NAME: one.num_attn_layers, _ssd.NAME: one.num_mamba_layers}
+
+
+class ModelContext:
+    """A built GPU context: the forward callable (``ctx(p, t)``) and what
+    its build did (``build_s``, the warm-up's ``launches``, the bytes the
+    caching allocator reserved beyond what it held before,
+    ``reserved_bytes``)."""
+
+    def __init__(self, fwd, build_s: float, launches: dict, reserved_bytes: int):
+        self.fwd = fwd
+        self.build_s = build_s
+        self.launches = launches
+        self.reserved_bytes = reserved_bytes
+
+    def __call__(self, p, t):
+        return self.fwd(p, t)
+
+
+def warm_up(cfg: ModelConfig, batch: int, seq: int, device: torch.device) -> dict:
+    """One forward of ``warmup_config(cfg)`` at (batch, seq) on zero-filled
+    weights on ``device``, its results dropped; on the card it waits for
+    its own work. Returns the kernel launches it made."""
+    one = warmup_config(cfg)
+    # drawn on the device and zeroed: the same shapes as ``param_shapes``,
+    # whose ``meta`` constants (Mamba2's log-spaced A) cost seconds of
+    # decomposition set-up in a fresh process
+    zeros = init_params(one, torch.Generator(device=device).manual_seed(0), device)
+    for leaf in _leaves(zeros):
+        leaf.zero_()
+    tokens = torch.zeros((batch, seq), dtype=torch.int32, device=device)
+    with torch.inference_mode():
+        forward(one, zeros, {"tokens": tokens})
+    del zeros, tokens
+    if device.type != "cuda":
+        return {}
+    # the warm-up's own work, not the whole device's: under SAGE the
+    # weights' copies run beside it on the same default stream (on a
+    # stream of its own the allocator would keep its blocks, ~5.6 GB at
+    # full width, from the forward's stream)
+    torch.cuda.current_stream(device).synchronize()
+    launched = {k: n for k, n in warmup_launches(cfg).items() if n}
+    with _ctx_lock:
+        context_launches.update(launched)
+    return launched
 
 
 def make_model_function(
@@ -100,16 +182,24 @@ def _model_function(
     def context_builder():
         # the 'GPU context': shape-only work that never touches the weights
         # (the knowability property that makes parallel setup possible) —
-        # build or load the kernel libraries the forward will launch
+        # build or load the kernel libraries the forward will launch, then
+        # the warm-up forward at the request's shapes
+        t0 = time.monotonic()
+        cuda = db.device.type == "cuda"
+        held = torch.cuda.memory_reserved(db.device) if cuda else 0
         for k in kernels:
             k.load()
+        launched = warm_up(cfg, batch, seq, db.device)
+        with _ctx_lock:
+            context_builds[fn_name] += 1
+        reserved = torch.cuda.memory_reserved(db.device) - held if cuda else 0
 
         def fwd(p, t):
             # inference_mode is thread-local: entered on the executor thread
             with torch.inference_mode():
                 return forward(cfg, p, {"tokens": t})[0]
 
-        return fwd
+        return ModelContext(fwd, time.monotonic() - t0, launched, reserved)
 
     def handler(shim, request: Request):
         w = shim.sage_load_to_gpu(weights_key)

@@ -110,6 +110,17 @@ def all_gather(x, gather_dim: int, group):
     return fn(x, gather_dim, group)
 
 
+def all_gather_autograd(x, gather_dim: int, group):
+    """``all_gather`` with a gradient: its backward reduce-scatters
+    (``all_gather_single_autograd`` from 2.13 on, ``all_gather_tensor_autograd``
+    before), waited for."""
+    import torch.distributed._functional_collectives as funcol
+
+    fn = (getattr(funcol, "all_gather_single_autograd", None)
+          or funcol.all_gather_tensor_autograd)
+    return funcol.wait_tensor(fn(x, gather_dim, group))
+
+
 def is_dtensor(x) -> bool:
     """Whether ``x`` is a ``DTensor``; free when the ``DTensor`` package was
     never imported (then none exists)."""
@@ -185,6 +196,6 @@ def local_shape(shape: Sequence[int], mesh_sizes: Dict[str, int], placements) ->
     return tuple(out)
 
 
-__all__ = ["AbstractMesh", "abstract_mesh", "all_gather", "axis_names", "init_fake_group", "is_dtensor",
+__all__ = ["AbstractMesh", "abstract_mesh", "all_gather", "all_gather_autograd", "axis_names", "init_fake_group", "is_dtensor",
            "gather_fsdp", "local_map", "local_shape", "make_mesh", "mesh_shape", "reduce_partials",
            "whole", "whole_unless_divides"]

@@ -8,13 +8,17 @@ the vocab-sharded lookups, and the cache writes. Each runs through
 the placement it came with on the data axes, and the ``model`` axis is
 set here:
 
-* ``flash_attention``: query heads over ``model`` when they divide by it,
-  else replicated (every rank runs all heads, and no collective beyond
-  gathering q, k and v whole: phi4-mini's 24 heads and whisper-small's 12
-  at ``model = 16``). KV heads that do not divide (GQA with the k/v
-  projections replicated, ``rules._kv_tp_ok``) stay whole on every rank,
-  and each rank hands the kernel the KV heads of its own query block
-  (``(r Hq / tp) // G`` on); their gradients are partial sums over
+* ``flash_attention``: query heads over ``model`` when they divide by it.
+  KV heads that do not divide (GQA with the k/v projections replicated,
+  ``rules._kv_tp_ok``) stay whole on every rank, and each rank hands the
+  kernel the KV heads of its own query block (``(r Hq / tp) // G`` on);
+  their gradients are partial sums over ``model``. Query heads that do
+  not divide (phi4-mini's 24, whisper-small's 12, llama4's 40 at ``model
+  = 16``) split the query rows over ``model`` instead, against whole K/V
+  (``_RowSplitAttention``): causal rows zigzag (2 tp chunks, rank r takes
+  chunks r and 2 tp - 1 - r, so every rank sees as many (query, key)
+  pairs), each chunk two K1 calls merged by their log-sum-exps; the rows
+  and dq are all-gathered whole, dk and dv are partial sums over
   ``model``.
 * ``decode_attention``: the cache is split along the sequence over
   ``model`` (flash-decode). Each rank runs K2 on its shard with its share
@@ -24,13 +28,28 @@ set here:
   (``ref._combine_partials``). The cache is never gathered.
 * ``ssd_scan``: SSD heads over ``model``; B and C (ngroups 1) whole on
   every rank, their gradients partial sums over ``model``.
+* ``mamba_mixer``: the Mamba2 block on each rank's SSD heads (as
+  ``ssd_scan``): the rank multiplies the in_proj columns it stores (as
+  the JAX rules lay in_proj out), the products are all-gathered and it
+  keeps its z, x and dt columns and B and C whole, the gated norm's sum
+  of squares all-reduced over ``model`` (a (B, S, 1) tensor),
+  out_proj row-parallel on its heads: the output and the gradients of x
+  and of the small leaves are partial sums over ``model``.
 * ``moe_ffn``: the MoE FFN's experts over ``model`` (the JAX rules'
   layout): each rank routes its rows on all experts, then runs its own E /
   tp; the output is a partial sum over ``model``. Experts that do not
   divide run whole on every rank.
 * ``embedding`` / ``target_logits``: a vocab-sharded table or logits; each
   rank looks up the ids it holds, zeros the rest, and the partial sums are
-  reduced at once.
+  reduced at once. ``logsumexp`` reduces vocab-split logits by
+  all-reducing each rank's (B, S) sums, where ``DTensor`` would gather the
+  logits whole.
+* ``split_over_model``: a weight the rules keep whole over ``model``
+  because its dim does not divide (an unembedding's vocab, mamba2-780m's
+  50280 and whisper-small's 51865; K/V projections whose KV heads do not
+  divide) cut along that dim over ``model`` (``torch.chunk``'s chunks,
+  uneven where it does not divide), so each rank forms its own columns
+  of the product, not all of them.
 * ``write_rows`` / ``write_positions``: the prefill's and the decode
   step's cache writes into a sequence-sharded cache: each rank writes the
   rows that fall in its shard and drops the rest.
@@ -39,10 +58,12 @@ A mesh axis of one rank takes the same code; its collectives move nothing.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.compat import all_gather, is_dtensor, local_map
+from repro_torch.distributed.compat import all_gather, all_gather_autograd, is_dtensor, local_map
 from repro_torch.kernels import ops
 
 
@@ -138,17 +159,18 @@ def flash_attention(q, k, v, *, causal=True, **kw):
     k, v = _as_dtensor(k, mesh), _as_dtensor(v, mesh)
     t = _tp(mesh)
     Hq, Hkv = q.shape[2], k.shape[2]
-    split = Hq % t == 0
-    kv_split = split and Hkv % t == 0
+    if Hq % t:
+        return _row_split_attention(q, k, v, causal=causal, **kw)
+    kv_split = Hkv % t == 0
     batch = _batch_axes(mesh, q)
-    qpl = _places(mesh, batch, 0, Shard(2) if split else Replicate())
+    qpl = _places(mesh, batch, 0, Shard(2))
     kvpl = _places(mesh, batch, 0, Shard(2) if kv_split else Replicate())
     kvgrad = _places(mesh, batch, 0, Shard(2) if kv_split else
-                     (Partial() if split and t > 1 else Replicate()))
+                     (Partial() if t > 1 else Replicate()))
     G = Hq // Hkv
 
     def fn(ql, kl, vl):
-        if split and not kv_split:
+        if not kv_split:
             hq = ql.shape[2]
             kl, vl = _own_kv(kl, vl, _rank(mesh) * hq, hq, G)
         return ops.flash_attention(ql.contiguous(), kl.contiguous(), vl.contiguous(),
@@ -156,6 +178,169 @@ def flash_attention(q, k, v, *, causal=True, **kw):
 
     return local_map(fn, out_placements=(qpl,), in_placements=(qpl, kvpl, kvpl),
                      in_grad_placements=(qpl, kvgrad, kvgrad), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
+def row_chunks(S: int, t: int, causal: bool):
+    """Each of ``t`` ranks' query-row chunks, (first row, rows) each:
+    causal, 2 t near-equal chunks with rank r taking chunks r and 2 t - 1 -
+    r (zigzag: a chunk near the end of the causal triangle paired with one
+    near its start); otherwise t near-equal contiguous chunks. Chunks may
+    be empty when S < 2 t."""
+    n = 2 * t if causal else t
+    edge = [S * i // n for i in range(n + 1)]
+    chunk = [(edge[i], edge[i + 1] - edge[i]) for i in range(n)]
+    if causal:
+        return [[chunk[r], chunk[n - 1 - r]] for r in range(t)]
+    return [[chunk[r]] for r in range(t)]
+
+
+def key_parts(first: int, rows: int, Sk: int, causal: bool):
+    """The K1 calls of a chunk of query rows, (first key, keys, causal)
+    each. K1 masks top-left (row i sees keys 0..i), so a causal chunk at
+    ``first`` is a non-causal call against keys [0, first) and a causal
+    one against keys [first, first + rows); a non-causal chunk sees every
+    key."""
+    if not causal:
+        return [(0, Sk, False)]
+    out = []
+    if min(first, Sk) > 0:
+        out.append((0, min(first, Sk), False))
+    if min(first + rows, Sk) > first:
+        out.append((first, min(first + rows, Sk) - first, True))
+    return out
+
+
+def merge_lse(parts, dtype):
+    """Outputs (B, S, H, Dh) and log-sum-exps fp32 (B, H, S) of attention
+    over disjoint key sets, merged into the attention over their union:
+    (out in ``dtype``, lse)."""
+    if len(parts) == 1:
+        return parts[0][0].to(dtype), parts[0][1]
+    lse = torch.logsumexp(torch.stack([p[1] for p in parts]), dim=0)
+    out = sum(o.float() * torch.exp(l - lse).permute(0, 2, 1)[..., None] for o, l in parts)
+    return out.to(dtype), lse
+
+
+def rank_rows(q, k, v, *, causal, scale, use_kernel, rank, t):
+    """Rank ``rank`` of ``t``'s share of attention split by query rows
+    (``row_chunks``) against whole K/V: each of its chunks' K1 calls
+    (``key_parts``, with their log-sum-exps) merged. Returns a list of
+    (first row, rows, out (B, rows, Hq, Dh), lse fp32 (B, Hq, rows)), the
+    empty chunks left out."""
+    Sk = k.shape[1]
+    mine = []
+    for first, rows in row_chunks(q.shape[1], t, causal)[rank]:
+        if rows == 0:
+            continue
+        qc = q[:, first:first + rows].contiguous()
+        res = [ops.flash_attention_lse(qc, k[:, a:a + n].contiguous(),
+                                       v[:, a:a + n].contiguous(), causal=cz,
+                                       scale=scale, use_kernel=use_kernel)
+               for a, n, cz in key_parts(first, rows, Sk, causal)]
+        mine.append((first, rows, *merge_lse(res, q.dtype)))
+    return mine
+
+
+def rank_rows_bwd(q, k, v, mine, dout, *, causal, scale, use_kernel):
+    """The gradients of ``rank_rows``' share, (dq, dk, dv) in the inputs'
+    dtypes (dq nonzero on the rank's rows only): K1's backward once per
+    call, from the merged output and log-sum-exp of its chunk (exact: the
+    merged lse gives each part the whole row's probabilities, and D =
+    rowsum(dO o O) is the whole row's). ``dout`` is the whole output's
+    gradient."""
+    Sk = k.shape[1]
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for first, rows, o, lse in mine:
+        qc = q[:, first:first + rows].contiguous()
+        doc = dout[:, first:first + rows].to(q.dtype).contiguous()
+        for a, n, cz in key_parts(first, rows, Sk, causal):
+            g = ops.flash_attention_bwd(qc, k[:, a:a + n].contiguous(), v[:, a:a + n].contiguous(),
+                                        o, lse, doc, causal=cz, scale=scale, use_kernel=use_kernel)
+            dq[:, first:first + rows] += g[0]
+            dk[:, a:a + n] += g[1]
+            dv[:, a:a + n] += g[2]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _gather_rows(x, mine, group, t: int, causal: bool):
+    """``x`` (B, S, ...) whole on every rank, from each rank's rows of it
+    (``mine``: this rank's (first row, rows), as ``row_chunks`` gives
+    them): each rank's rows packed, all-gathered over ``model`` and put
+    back in order."""
+    B, S = x.shape[:2]
+    chunks = row_chunks(S, t, causal)
+    width = max(sum(c for _, c in r) for r in chunks)
+    own = x.new_zeros((B, width, *x.shape[2:]))
+    at = 0
+    for first, rows in mine:
+        own[:, at:at + rows] = x[:, first:first + rows]
+        at += rows
+    gathered = all_gather(own, 1, group)
+    index = [0] * S
+    for r, ranks_chunks in enumerate(chunks):
+        at = r * width
+        for first, rows in ranks_chunks:
+            index[first:first + rows] = range(at, at + rows)
+            at += rows
+    return gathered.index_select(1, torch.tensor(index, device=x.device)).contiguous()
+
+
+class _RowSplitAttention(torch.autograd.Function):
+    """One rank's share of attention split by query rows (``rank_rows``),
+    its rows all-gathered over ``model`` and put back in order; backward
+    ``rank_rows_bwd``, whose dq, dk and dv are partial sums over
+    ``model``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, use_kernel, group, rank, t):
+        mine = rank_rows(q, k, v, causal=causal, scale=scale, use_kernel=use_kernel,
+                         rank=rank, t=t)
+        out = q.new_zeros(q.shape)
+        for first, rows, o, _ in mine:
+            out[:, first:first + rows] = o
+        out = _gather_rows(out, [(f, r) for f, r, _, _ in mine], group, t, causal)
+        ctx.causal, ctx.scale, ctx.use_kernel, ctx.group, ctx.t = (causal, scale, use_kernel,
+                                                                   group, t)
+        ctx.chunks = [(f, r) for f, r, _, _ in mine]
+        ctx.save_for_backward(q, k, v, *[x for _, _, o, lse in mine for x in (o, lse)])
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, *saved = ctx.saved_tensors
+        mine = [(f, r, saved[2 * i], saved[2 * i + 1]) for i, (f, r) in enumerate(ctx.chunks)]
+        dq, dk, dv = rank_rows_bwd(q, k, v, mine, dout, causal=ctx.causal, scale=ctx.scale,
+                                   use_kernel=ctx.use_kernel)
+        # dq whole, as q came: each rank's rows gathered (its product with
+        # the q projection's weight then stays the rank's columns)
+        return (_gather_rows(dq, [(f, r) for f, r, _, _ in mine], ctx.group, ctx.t,
+                             ctx.causal), dk, dv, None, None, None, None, None, None)
+
+
+def _row_split_attention(q, k, v, *, causal=True, scale=None, use_kernel="auto", **_):
+    """``flash_attention`` when the query heads do not divide by ``model``:
+    q, k and v whole over ``model``, each rank its rows
+    (``_RowSplitAttention``); the output and q's gradient whole over
+    ``model`` (each gathered from the ranks' rows), k's and v's partial
+    sums over it."""
+    Partial, Replicate, _ = _pl()
+    mesh = q.device_mesh
+    mi = _model_dim(mesh)
+    batch = _batch_axes(mesh, q)
+    whole = _places(mesh, batch, 0, Replicate())
+    part = _places(mesh, batch, 0, Partial())
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
+
+    def fn(ql, kl, vl):
+        return _RowSplitAttention.apply(ql.contiguous(), kl.contiguous(), vl.contiguous(),
+                                        bool(causal), scale, use_kernel, (mesh, mi),
+                                        _rank(mesh), _tp(mesh))
+
+    return local_map(fn, out_placements=(whole,), in_placements=(whole, whole, whole),
+                     in_grad_placements=(whole, part, part), device_mesh=mesh,
                      redistribute_inputs=True)(q, k, v)
 
 
@@ -223,6 +408,103 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk=128, initial_state=None, **kw):
     return local_map(fn, out_placements=(xpl, spl), in_placements=tuple(inp),
                      in_grad_placements=tuple(grads), device_mesh=mesh,
                      redistribute_inputs=True)(*args)
+
+
+# ---------------------------------------------------------------------------
+# the Mamba2 block: SSD heads over ``model``
+# ---------------------------------------------------------------------------
+
+class _SumOverModel(torch.autograd.Function):
+    """An all-reduce (sum) over ``model`` whose gradient is one too: each
+    rank's share reaches every rank's use of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed._functional_collectives as funcol
+
+        ctx.group = group
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed._functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_reduce(g.contiguous(), "sum", ctx.group)), None
+
+
+def mamba_mixer(cfg, p, x, *, initial_state=None, return_state=False):
+    """``mamba2.mamba_forward`` for a ``DTensor`` ``x`` (B, S, D), whole over
+    ``model``: each rank runs ``mamba2.mixer`` on its nh / tp SSD heads
+    (contiguous, as ``ssd_scan`` splits them and as out_proj's rows are
+    stored). in_proj's product: each rank multiplies the 1 / tp of the
+    columns it stores (the JAX rules' layout, which does not line up with
+    the z / x / B / C / dt blocks), the products are all-gathered (the
+    backward reduce-scatters their gradient) and the rank keeps its z, x
+    and dt columns and B and C whole; where the columns do not divide, the
+    weight is whole on every rank and the rank multiplies the columns it
+    keeps. The output is a partial sum over ``model``, reduced into the
+    residual's placement where it is added; the final state is split by
+    heads (the ssm cache's layout) and the conv tail whole (the rank's x
+    channels all-gathered). Heads that do not divide by ``model``: every
+    rank runs the whole block."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
+
+    Partial, Replicate, Shard = _pl()
+    mesh = x.device_mesh
+    mi = _model_dim(mesh)
+    t = _tp(mesh)
+    split = t > 1 and cfg.ssm_nheads % t == 0
+    ranks = t if split else 1
+    ct = L.cdtype(cfg)
+    cols = 2 * cfg.ssm_d_inner + 2 * cfg.ssm_state + cfg.ssm_nheads
+    stored = split and cols % t == 0
+    batch = _batch_axes(mesh, x)
+    part = Partial() if split else Replicate()
+    whole = _places(mesh, batch, None, Replicate())
+    small = _no_batch_grad(mesh, batch, part)
+    ipl = Shard(1) if stored else Replicate()
+    opl = Shard(0) if split else Replicate()
+    names = ("conv_w", "conv_b", "A_log", "D", "dt_bias", "norm")
+    args = [x, L.weight(p["in_proj"], ct), L.weight(p["out_proj"], ct),
+            *(_as_dtensor(p[n], mesh) for n in names)]
+    inp = [_places(mesh, batch, 0, Replicate()), _places(mesh, batch, None, ipl),
+           _places(mesh, batch, None, opl), *[whole] * len(names)]
+    grads = [_places(mesh, batch, 0, part), _no_batch_grad(mesh, batch, ipl if stored else part),
+             _no_batch_grad(mesh, batch, opl), *[small] * len(names)]
+    if initial_state is not None:
+        args.append(_as_dtensor(initial_state, mesh))
+        inp.append(_places(mesh, batch, 0, Shard(1) if split else Replicate()))
+        grads.append(inp[-1])
+    group = (mesh, mi)
+    rank = _rank(mesh) if split else 0
+
+    def fn(xl, wi, wo, *rest):
+        pl = dict(zip(names, rest), in_proj=wi, out_proj=wo)
+        proj = None
+        if stored:  # every rank's stored columns' product, gathered; this rank's columns
+            proj = M._take(all_gather_autograd(xl.to(ct) @ wi, xl.ndim - 1, group),
+                           M.own_columns(cfg, rank, ranks), -1)
+        res = M.mixer(cfg, pl, xl, initial_state=rest[len(names)] if len(rest) > len(names)
+                      else None, return_state=return_state, rank=rank, ranks=ranks,
+                      sum_ranks=lambda s: _SumOverModel.apply(s, group), proj=proj)
+        if not return_state:
+            return res
+        out, final, tail = res
+        if split:  # the conv tail whole: every rank's x channels, then B and C
+            dr = cfg.ssm_d_inner // ranks
+            xs = all_gather(tail[..., :dr].contiguous(), tail.ndim - 1, group)
+            tail = torch.cat([xs, tail[..., dr:]], dim=-1)
+        return out, final, tail
+
+    outs = (_places(mesh, batch, 0, part),)
+    if return_state:
+        outs += (_places(mesh, batch, 0, Shard(1) if split else Replicate()),
+                 _places(mesh, batch, 0, Replicate()))
+    res = local_map(fn, out_placements=outs if return_state else (outs[0],),
+                    in_placements=tuple(inp), in_grad_placements=tuple(grads),
+                    device_mesh=mesh, redistribute_inputs=True)(*args)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -307,6 +589,90 @@ def _vocab_split(x, dim: int) -> bool:
     return mi is not None and x.placements[mi].is_shard(dim) and x.device_mesh.size(mi) > 1
 
 
+def _vocab_first(x, dim: int) -> int:
+    """This rank's first vocab row of ``x`` split along ``dim`` over
+    ``model`` (``torch.chunk``'s split: ceil(V / tp) rows a rank, the last
+    rank fewer when V does not divide)."""
+    t = _tp(x.device_mesh)
+    return _rank(x.device_mesh) * -(-x.shape[dim] // t)
+
+
+def split_over_model(w, dim: int):
+    """A ``DTensor`` weight ``w`` whole over ``model`` (the rules keep it so
+    when its dim does not divide by the model axis: K/V projections whose
+    KV heads do not divide, an unembedding whose vocab does not) split
+    along ``dim`` over ``model``, so that each rank forms its own columns
+    of the product, not all of them: a local cut (``torch.chunk``'s
+    split, uneven where ``dim`` does not divide), no collective. Its
+    gradient is gathered back whole. Otherwise ``w`` as it is."""
+    _, _, Shard = _pl()
+    mi = _model_dim(w.device_mesh)
+    if mi is None or w.device_mesh.size(mi) == 1 or not w.placements[mi].is_replicate():
+        return w
+    pls = list(w.placements)
+    pls[mi] = Shard(dim % w.ndim)
+    return w.redistribute(w.device_mesh, pls)
+
+
+def rows_of(x, w):
+    """``x`` (..., K), whole over ``model``, cut along K to the rows of ``w``
+    (K, N) this rank holds, when ``w``'s rows are split over ``model``: a
+    local cut, so that ``x @ w`` is the rank's partial sum and its weight
+    gradient the rank's rows (left to itself ``DTensor`` forms that
+    gradient whole on every rank). Otherwise ``x`` as it is."""
+    _, _, Shard = _pl()
+    mi = _model_dim(x.device_mesh)
+    if (mi is None or not x.placements[mi].is_replicate()
+            or not (is_dtensor(w) and w.placements[mi].is_shard(0))):
+        return x
+    pls = list(x.placements)
+    pls[mi] = Shard(x.ndim - 1)
+    return x.redistribute(x.device_mesh, pls)
+
+
+class _ShareSum(torch.autograd.Function):
+    """A sum over ``model`` of each rank's share of a result that every rank
+    then uses alike (replicated): all-reduced forward, the identity
+    backward (each share's gradient is the result's, once)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed._functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def logsumexp(logits):
+    """``torch.logsumexp(logits, -1)`` for ``DTensor`` logits (B, S, V), the
+    vocab over ``model``: each rank's sum of exp below the global max,
+    all-reduced ((B, S) tensors, where ``DTensor`` would gather the logits
+    whole). The max is a constant of the result's value, so its gradient
+    is the softmax of each rank's own logits."""
+    import torch.distributed._functional_collectives as funcol
+
+    Partial, Replicate, Shard = _pl()
+    mesh = logits.device_mesh
+    if not (_vocab_split(logits, 2) or _vocab_split(logits, -1)):
+        return torch.logsumexp(logits, dim=-1)
+    mi = _model_dim(mesh)
+    batch = _batch_axes(mesh, logits)
+    lpl = _places(mesh, batch, 0, Shard(2))
+    group = (mesh, mi)
+
+    def fn(ll):
+        m = funcol.wait_tensor(funcol.all_reduce(ll.detach().amax(-1), "max", group))
+        share = torch.exp(ll - m[..., None]).sum(-1)
+        return m + torch.log(_ShareSum.apply(share, group))
+
+    return local_map(fn, out_placements=(_places(mesh, batch, 0, Replicate()),),
+                     in_placements=(lpl,), in_grad_placements=(lpl,), device_mesh=mesh,
+                     redistribute_inputs=True)(logits)
+
+
 def embedding(tokens, table):
     """``F.embedding(tokens, table)`` for a ``DTensor`` table, the vocab
     over ``model``: each rank looks up the ids in its rows, zeros the rest,
@@ -320,11 +686,13 @@ def embedding(tokens, table):
     tpl = _places(mesh, batch, 0, Replicate())
     wpl = _places(mesh, batch, None, mpl)
 
+    first = _vocab_first(table, 0) if vsplit else 0
+
     def fn(tl, wl):
         if not vsplit:
             return F.embedding(tl, wl)
         V = wl.shape[0]
-        loc = tl - _rank(mesh) * V
+        loc = tl - first
         ok = (loc >= 0) & (loc < V)
         return F.embedding(loc.clamp(0, V - 1), wl) * ok[..., None].to(wl.dtype)
 
@@ -347,11 +715,13 @@ def target_logits(logits, targets):
     lpl = _places(mesh, batch, 0, Shard(2) if vsplit else Replicate())
     tpl = _places(mesh, batch, 0, Replicate())
 
+    first = _vocab_first(logits, -1) if vsplit else 0
+
     def fn(ll, tl):
         if not vsplit:
             return ll.gather(-1, tl[..., None])[..., 0]
         V = ll.shape[-1]
-        loc = tl - _rank(mesh) * V
+        loc = tl - first
         ok = (loc >= 0) & (loc < V)
         got = ll.gather(-1, loc.clamp(0, V - 1)[..., None])[..., 0]
         return torch.where(ok, got, torch.zeros((), dtype=got.dtype, device=got.device))

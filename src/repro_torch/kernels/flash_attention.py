@@ -139,6 +139,14 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def flash_attention_lse(q, k, v, *, causal: bool = True, scale: Optional[float] = None):
+    """The forward kernel with each row's log-sum-exp, no gradient: (out,
+    fp32 (B, Hq, Sq) log-sum-exp)."""
+    check_inputs(q, k, v)
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
+    return _forward(q, k, v, causal, scale, with_lse=True)
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, Hq, Dh)
     k: torch.Tensor,  # (B, Sk, Hkv, Dh)

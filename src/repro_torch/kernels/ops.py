@@ -21,7 +21,9 @@ every family trains on the CPU and on the card.
 Sharded tensors: a ``DTensor`` (a cell's step on a mesh) goes to
 ``distributed.local``, which runs the entry point below on each rank's
 shards through ``local_map`` with stated placements (heads over
-``model`` for K1 and K3, the cache's sequence over ``model`` for K2, whose
+``model`` for K1 and K3, or K1's query rows where its heads do not
+divide, merged by ``flash_attention_lse`` and differentiated by
+``flash_attention_bwd``; the cache's sequence over ``model`` for K2, whose
 per-shard partials are merged across ranks). The kernels never see a
 ``DTensor``, and no weight is gathered whole for them.
 
@@ -37,6 +39,7 @@ import torch
 from repro_torch.distributed.compat import is_dtensor
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd_scan as _ssd
 
@@ -72,6 +75,32 @@ def flash_attention(q, k, v, *, causal=True, block_q=512, block_k=512,
                                    block_k=block_k, scale=scale)
     return _ref.flash_attention(q, k, v, causal=causal, block_q=block_q,
                                 block_k=block_k, scale=scale)
+
+
+def flash_attention_lse(q, k, v, *, causal=True, scale=None, use_kernel="auto"):
+    """K1's forward with each row's log-sum-exp, and no gradient: (out, lse
+    fp32 (B, Hq, Sq)). For a caller that merges several calls by their
+    log-sum-exps and differentiates the merge with ``flash_attention_bwd``
+    (``distributed.local``'s attention split by query rows)."""
+    with torch.no_grad():
+        if counter is not None and counter.outside():
+            return counter.unit(_fa.NAME, flash_attention_lse, q, k, v, causal=causal,
+                                scale=scale, use_kernel=use_kernel)
+        if _resolve(use_kernel, q):
+            return _fa.flash_attention_lse(q, k, v, causal=causal, scale=scale)
+        return (_ref.flash_attention(q, k, v, causal=causal, scale=scale),
+                _ref.attention_lse(q, k, causal=causal, scale=scale))
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, scale=None, use_kernel="auto"):
+    """K1's backward from the forward's (possibly merged) output and
+    log-sum-exp: (dq, dk, dv)."""
+    if counter is not None and counter.outside():
+        return counter.unit(_fab.NAME, flash_attention_bwd, q, k, v, o, lse, do,
+                            causal=causal, scale=scale, use_kernel=use_kernel)
+    if _resolve(use_kernel, q):
+        return _fab.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    return _ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, block_k=1024, scale=None,

@@ -161,7 +161,11 @@ def _project(cfg: ModelConfig, p: dict, x: torch.Tensor, name: str, heads: int):
     """One of the q/k/v projections: (B, S, D) -> (B, S, heads, Dh), with the
     bias and (q and k only) the qk-norm where the config has them."""
     ct = cdtype(cfg)
-    y = x.to(ct) @ weight(p[f"w{name}"], ct)
+    w = weight(p[f"w{name}"], ct)
+    if is_dtensor(w):  # a projection the rules keep whole over ``model``: each rank its columns
+        from repro_torch.distributed import local
+        w = local.split_over_model(w, 1)
+    y = x.to(ct) @ w
     if cfg.qkv_bias:
         y = y + p[f"b{name}"].to(ct)
     # sharded over more ranks than it has heads: the projection is gathered
@@ -209,7 +213,11 @@ def _out_proj(cfg: ModelConfig, p: dict, out: torch.Tensor) -> torch.Tensor:
     B, S = out.shape[:2]
     ct = cdtype(cfg)
     flat = _merge_heads(out, (B, S, cfg.num_heads * cfg.head_dim)).to(ct)
-    return flat @ weight(p["wo"], ct)
+    w = weight(p["wo"], ct)
+    if is_dtensor(flat):  # whole heads (split by rows): each rank its rows of wo
+        from repro_torch.distributed import local
+        flat = local.rows_of(flat, w)
+    return flat @ w
 
 
 def _merge_heads(out: torch.Tensor, shape) -> torch.Tensor:
@@ -463,4 +471,7 @@ def unembed(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         w = weight(p["embedding"], ct).T
     else:
         w = weight(p["lm_head"], ct)
+    if is_dtensor(w):  # the logits split over ``model`` by vocab, even where it does not divide
+        from repro_torch.distributed import local
+        w = local.split_over_model(w, 1)
     return (x.to(ct) @ w).float()

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.compat import is_dtensor
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_scan as ssd_chunked_ref  # noqa: F401
 from repro_torch.models.layers import _uniform, cdtype, dense_init, pdtype, rms_norm, weight
@@ -120,32 +121,121 @@ def mamba_forward(
     also returns the final SSM state (B, H, P, N) fp32 and the pre-conv
     tail (B, W-1, conv_dim), the decode conv state; that needs at least
     W-1 tokens, and a shorter sequence raises ``ValueError`` (the JAX
-    package stores the short tail and its next decode step raises)."""
-    B, S, _ = xin.shape
+    package stores the short tail and its next decode step raises). A
+    ``DTensor`` input (a cell on a mesh) runs each rank's share of the SSD
+    heads through ``distributed.local.mamba_mixer``."""
+    S = xin.shape[1]
     if return_state and S < cfg.ssm_conv - 1:
         raise ValueError(
             f"a Mamba2 prefill of {S} tokens is shorter than the conv state's "
             f"{cfg.ssm_conv - 1} rows (ssm_conv - 1)")
-    di, ns, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
-    ct = cdtype(cfg)
-    zxbcdt = xin.to(ct) @ weight(p["in_proj"], ct)
-    z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
-    conv_tail = xbc[:, S - (cfg.ssm_conv - 1):]  # pre-conv tail -> decode conv state
-    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    x, Bm, Cm = torch.split(xbc, [di, ns, ns], dim=-1)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B,S,H)
-    A = -torch.exp(p["A_log"])  # (H,) negative
-    xh = x.reshape(B, S, nh, hp)
-    y, final_state = ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk,
-                                  initial_state=initial_state)
-    y = y + xh * p["D"][:, None].float()
-    y = y.reshape(B, S, di)
-    # gated RMSNorm (mamba2): norm(y * silu(z))
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg.rmsnorm_eps)
-    out = y.to(ct) @ weight(p["out_proj"], ct)
+    if is_dtensor(xin):
+        from repro_torch.distributed import local
+        return local.mamba_mixer(cfg, p, xin, initial_state=initial_state,
+                                 return_state=return_state)
+    return mixer(cfg, p, xin, initial_state=initial_state, return_state=return_state)
+
+
+def own_columns(cfg: ModelConfig, rank: int, ranks: int):
+    """The in_proj columns that rank ``rank`` of ``ranks`` reads, as (first,
+    count) ranges in order: its share of z, then of x, B and C whole, its
+    share of dt (its SSD heads, contiguous). One range per block when
+    ``ranks`` is 1."""
+    di, ns, nh = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads
+    dr, hr = di // ranks, nh // ranks
+    return [(rank * dr, dr), (di + rank * dr, dr), (2 * di, 2 * ns),
+            (2 * di + 2 * ns + rank * hr, hr)]
+
+
+def _take(t: torch.Tensor, ranges, dim: int) -> torch.Tensor:
+    return torch.cat([t.narrow(dim, a, n) for a, n in ranges], dim=dim)
+
+
+def mixer(
+    cfg: ModelConfig,
+    p: dict,
+    xin: torch.Tensor,  # (B, S, D)
+    *,
+    initial_state: Optional[torch.Tensor] = None,
+    return_state: bool = False,
+    rank: int = 0,
+    ranks: int = 1,
+    sum_ranks=None,
+    proj=None,
+):
+    """The Mamba2 block on rank ``rank`` of ``ranks``' share of the SSD
+    heads (all of them when ``ranks`` is 1; plain tensors): ``gated``, the
+    gated RMSNorm over all of d_inner (``sum_ranks`` sums a tensor over the
+    ranks: the sum of squares), then ``norm_out``. The output is the
+    rank's partial sum of out_proj, the final state its heads', and the
+    conv tail its own channels: [x share, B, C]."""
+    g, final_state, conv_tail = gated(cfg, p, xin, initial_state=initial_state, rank=rank,
+                                      ranks=ranks, proj=proj)
+    if ranks == 1:
+        ct = cdtype(cfg)
+        out = rms_norm(g, p["norm"], cfg.rmsnorm_eps).to(ct) @ weight(p["out_proj"], ct)
+    else:
+        out = norm_out(cfg, p, g, sum_ranks(sum_squares(g)), rank=rank, ranks=ranks)
     if return_state:
         return out, final_state, conv_tail
     return out
+
+
+def gated(cfg: ModelConfig, p: dict, xin: torch.Tensor, *,
+          initial_state: Optional[torch.Tensor] = None, rank: int = 0, ranks: int = 1,
+          proj=None):
+    """in_proj -> conv -> SSD -> y * silu(z) on rank ``rank`` of ``ranks``'
+    heads: (g (B, S, d_inner / ranks) fp32, the final state, the pre-conv
+    tail). With ``ranks`` > 1: ``p["in_proj"]`` whole (or ``proj``, the
+    rank's z/x/B/C/dt columns of its product, already computed),
+    ``initial_state`` the rank's heads."""
+    B, S, _ = xin.shape
+    di, ns, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
+    dr, hr = di // ranks, nh // ranks
+    ct = cdtype(cfg)
+    if proj is not None:
+        zxbcdt = proj
+    elif ranks == 1:
+        zxbcdt = xin.to(ct) @ weight(p["in_proj"], ct)
+    else:
+        zxbcdt = xin.to(ct) @ _take(weight(p["in_proj"], ct), own_columns(cfg, rank, ranks), 1)
+    z, xbc, dt_raw = torch.split(zxbcdt, [dr, dr + 2 * ns, hr], dim=-1)
+    conv_tail = xbc[:, S - (cfg.ssm_conv - 1):]  # pre-conv tail -> decode conv state
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    heads = slice(rank * hr, (rank + 1) * hr)
+    dt_bias, A_log, Dp = p["dt_bias"][heads], p["A_log"][heads], p["D"][heads]
+    if ranks > 1:  # the conv's channels: the rank's x, then B and C
+        chans = [(rank * dr, dr), (di, 2 * ns)]
+        conv_w, conv_b = _take(conv_w, chans, 1), _take(conv_b, chans, 0)
+    xbc = _causal_conv(xbc, conv_w, conv_b)
+    x, Bm, Cm = torch.split(xbc, [dr, ns, ns], dim=-1)
+    dt = F.softplus(dt_raw.float() + dt_bias)  # (B,S,H)
+    A = -torch.exp(A_log)  # (H,) negative
+    xh = x.reshape(B, S, hr, hp)
+    y, final_state = ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk,
+                                  initial_state=initial_state)
+    y = y + xh * Dp[:, None].float()
+    y = y.reshape(B, S, dr)
+    # gated RMSNorm (mamba2): norm(y * silu(z)); here the gate
+    return y * F.silu(z.float()).to(y.dtype), final_state, conv_tail
+
+
+def sum_squares(g: torch.Tensor) -> torch.Tensor:
+    """The rank's share of the gated norm's sum of squares, (B, S, 1) fp32."""
+    gf = g.float()
+    return (gf * gf).sum(-1, keepdim=True)
+
+
+def norm_out(cfg: ModelConfig, p: dict, g: torch.Tensor, sumsq: torch.Tensor, *,
+             rank: int, ranks: int) -> torch.Tensor:
+    """The gated RMSNorm of the rank's channels ``g``, ``sumsq`` the sum of
+    squares over all of d_inner, then out_proj (``p["out_proj"]`` the
+    rank's rows): the rank's partial sum of the block's output."""
+    di, ct = cfg.ssm_d_inner, cdtype(cfg)
+    dr = di // ranks
+    y = (g.float() * torch.rsqrt(sumsq / di + cfg.rmsnorm_eps)
+         * p["norm"][rank * dr:(rank + 1) * dr].float()).to(g.dtype)
+    return y.to(ct) @ weight(p["out_proj"], ct)
 
 
 def mamba_decode(

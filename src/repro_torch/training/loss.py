@@ -29,11 +29,12 @@ def lm_loss(
     mask = (torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
             if mask is None else mask[:, 1:].to(torch.float32))
 
-    lse = torch.logsumexp(logits, dim=-1)  # (B,S-1)
-    if is_dtensor(logits):  # vocab-sharded: each rank gathers the targets it holds
+    if is_dtensor(logits):  # vocab-sharded: each rank sums and gathers what it holds
         from repro_torch.distributed import local
+        lse = local.logsumexp(logits)  # (B,S-1)
         tgt_logit = local.target_logits(logits, targets)
     else:
+        lse = torch.logsumexp(logits, dim=-1)  # (B,S-1)
         tgt_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
     ce = lse - tgt_logit
     denom = torch.clamp(mask.sum(), min=1.0)

@@ -47,6 +47,36 @@ def test_single_matmul_flops():
     assert rep["hbm_bytes"] == 4 * (64 * 128 + 128 * 32 + 64 * 32)
 
 
+def test_products_split_by_shape():
+    """``by_product`` splits the products' ``by_op`` rows by op and operand
+    shapes: two shapes of ``mm`` and an ``addmm`` (its bias is not an
+    operand of the product), each row's flops 2 M K N, and the rows of an
+    op sum to its ``by_op`` row."""
+    a, b, c = _randn(8, 16), _randn(16, 4), _randn(4, 32)
+    bias = _randn(32)
+
+    def step():
+        h = a @ b
+        h = h @ c
+        h = a @ b
+        return torch.addmm(bias, h, c)
+
+    rep = analyze_step(step)
+    got = rep["by_product"]
+    assert got == {
+        "aten.mm (8, 16) @ (16, 4)": {"count": 2, "flops": 2 * 2.0 * 8 * 16 * 4,
+                                      "bytes": 2 * 4.0 * (8 * 16 + 16 * 4 + 8 * 4)},
+        "aten.mm (8, 4) @ (4, 32)": {"count": 1, "flops": 2.0 * 8 * 4 * 32,
+                                     "bytes": 4.0 * (8 * 4 + 4 * 32 + 8 * 32)},
+        "aten.addmm (8, 4) @ (4, 32)": {"count": 1, "flops": 2.0 * 8 * 4 * 32,
+                                        "bytes": 4.0 * (32 + 8 * 4 + 4 * 32 + 8 * 32)},
+    }
+    for op in ("aten.mm", "aten.addmm"):
+        rows = [v for k, v in got.items() if k.startswith(op + " ")]
+        assert sum(r["flops"] for r in rows) == rep["by_op"][op]["flops"]
+        assert sum(r["count"] for r in rows) == rep["by_op"][op]["count"]
+
+
 def test_convolution_flops():
     """A convolution is a product: 2 prod(out) K, K = (Cin / groups) x the
     kernel's size (transposed: 2 prod(in) K)."""

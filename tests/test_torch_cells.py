@@ -4,9 +4,12 @@ facts and skip reasons; the reduced qwen2.5-3b, mamba2-780m, olmoe-1b-7b
 and jamba train, prefill and decode cells on a one-rank gloo mesh against
 the JAX steps on the same weights; the same cells (olmoe's with E over
 ``model``, and with E that does not divide) on two gloo ranks, (data,
-model) = (1, 2) and (2, 1), against the one-rank run; one production
+model) = (1, 2) and (2, 1), against the one-rank run; the reduced
+phi4-mini on three gloo ranks (attention split by query rows) and the
+reduced jamba on two (Mamba2 blocks split by heads); one production
 cell's dry-run on a 256-rank fake group, a MoE prefill's on a 512-rank
-one, and a skipped cell."""
+one, one full-width layer's per-rank products on a 16-rank one, and a
+skipped cell."""
 import json
 import subprocess
 import sys
@@ -30,7 +33,9 @@ from repro.models import init_params as jax_init_params  # noqa: E402
 from repro.serving import engine as jax_engine  # noqa: E402
 from repro.training import optimizer as jax_opt  # noqa: E402
 from repro.training import steps as jax_steps  # noqa: E402
-from repro_torch.analysis.roofline import HBM_BW, HBM_BYTES, LINK_BW, PEAK_FLOPS  # noqa: E402
+from repro_torch.analysis.roofline import (  # noqa: E402
+    HBM_BW, HBM_BYTES, LINK_BW, PEAK_FLOPS, attention_bound_ms,
+)
 from repro_torch.configs import ARCHS, SHAPES, ShapeConfig  # noqa: E402
 from repro_torch.launch import cells, dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
@@ -300,6 +305,165 @@ def test_two_ranks_match_one_rank(layout, tmp_path):
     for name in ("qwen_decode", "olmoe_decode"):
         err, scale = res[name]
         assert err <= 1e-5 * max(1.0, scale), (name, res[name])
+
+
+_SPLITS = textwrap.dedent("""
+    import json, sys
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.training import optimizer, steps
+    rank, path, world, what = int(sys.argv[1]), sys.argv[2], int(sys.argv[3]), sys.argv[4]
+    dist.init_process_group("gloo", init_method="file://" + path, rank=rank, world_size=world)
+    mesh = make_host_mesh(1, world, device_type="cpu")
+    ocfg = optimizer.OptimizerConfig(lr=1e-2, warmup_steps=1, total_steps=10, clip_norm=0.5)
+    out = {}
+
+    def train(name, cfg):
+        def state():
+            p = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+            return {"params": p, "opt": optimizer.adamw_init(ocfg, p)}
+        one, st = steps.make_train_step(cfg, ocfg), state()
+        step, (cst, _), _ = cells._build_train(cfg, ShapeConfig("t", "train", 16, 4), mesh,
+                                               cells.CellTuning(), state=state(), opt_cfg=ocfg)
+        got, want = [], []
+        for i in range(2):
+            b = {"tokens": torch.from_numpy(np.random.default_rng(10 + i).integers(
+                0, cfg.vocab_size, (4, 16), dtype=np.int32))}
+            st, m = one(st, b)
+            cst, cm = step(cst, cells.place_batch(cfg, mesh, b, "train"))
+            want += [float(m["loss"]), float(m["grad_norm"])]
+            got += [float(cm["loss"]), float(cm["grad_norm"])]
+        out[name] = [got, want]
+
+    if what == "phi4":
+        cfg = ARCHS["phi4-mini-3.8b"].reduced()
+        g = np.random.default_rng(0)
+        for causal in (True, False):
+            # 13 rows: no multiple of 2 x 3 (zigzag) nor of 3
+            q, k, v = (torch.tensor(g.standard_normal((2, 13, h, cfg.head_dim)),
+                                    dtype=torch.float32)
+                       for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+            do = torch.tensor(g.standard_normal(q.shape), dtype=torch.float32)
+            ref = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = ops.flash_attention(*ref, causal=causal)
+            o.backward(do)
+            dts = [distribute_tensor(t.clone(), mesh, [Replicate(), Replicate()]).requires_grad_()
+                   for t in (q, k, v)]
+            od = ops.flash_attention(*dts, causal=causal)
+            od.backward(distribute_tensor(do, mesh, [Replicate(), Replicate()]))
+            out["attention_causal" if causal else "attention"] = [
+                [float((a - b).abs().max()) for a, b in zip(
+                    [od.full_tensor(), *(t.grad.full_tensor() for t in dts)],
+                    [o, *(t.grad for t in ref)])],
+                [float(t.abs().max()) for t in (o, *(t.grad for t in ref))]]
+        train("phi4_train", cfg)
+    else:
+        train("jamba_train", ARCHS["jamba-1.5-large-398b"].reduced())
+    dist.destroy_process_group()
+    if rank == 0:
+        print(json.dumps(out))
+""")
+
+
+@pytest.mark.parametrize("what,world", [("phi4", 3), ("jamba", 2)])
+def test_split_rows_and_heads_match_one_rank(what, world, tmp_path):
+    """Gloo processes on (data, model) = (1, world) against the plain one-rank
+    steps in the same process. phi4: the reduced phi4-mini (4 query heads,
+    2 KV heads) at model = 3, where the heads do not divide and attention
+    splits the query rows (zigzag when causal): the attention alone, causal
+    and not, on 13 rows (no multiple of 6 or 3), its output and q, k, v
+    gradients within 1e-5 of their largest (fp32); then two train steps
+    (the vocab of 256 splits 86/86/84 over the ranks), losses and grad
+    norms within 1e-5. jamba: the reduced jamba train cell at model = 2
+    (its Mamba2 blocks' SSD heads over model, in_proj's product gathered
+    and out_proj row-parallel), within ``TRAIN_RTOL``'s 1e-3."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _SPLITS, str(r), str(tmp_path / "pg"), str(world), what],
+        env=ENV, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(world)]
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=240)
+        assert p.returncode == 0, out[-2000:] + err[-4000:]
+        outs.append(out)
+    res = json.loads(outs[0].strip().splitlines()[-1])
+    for name in ("attention_causal", "attention"):
+        if name in res:
+            errs, scale = res[name]
+            assert all(e <= 1e-5 * max(1.0, m) for e, m in zip(errs, scale)), (name, res[name])
+    train = {"phi4": ("phi4_train", 1e-5), "jamba": ("jamba_train",
+                                                     TRAIN_RTOL["jamba-1.5-large-398b"])}[what]
+    got, want = res[train[0]]
+    np.testing.assert_allclose(got, want, rtol=train[1], err_msg=train[0])
+    assert want[1] > 0.5  # the first step's norm: the clip is hit
+
+
+_SMALL_DRYRUN = textwrap.dedent("""
+    import dataclasses, json, sys
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.analysis.op_analysis import analyze_step
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.distributed.compat import init_fake_group
+    from repro_torch.launch import cells
+    arch, kind, B, S = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+    init_fake_group(16)
+    mesh = init_device_mesh("cpu", (1, 16), mesh_dim_names=("data", "model"))
+    cfg = dataclasses.replace(ARCHS[arch], num_layers=ARCHS[arch].period_len)
+    build = cells._build_prefill if kind == "prefill" else cells._build_train
+    step, args, _ = build(cfg, ShapeConfig("s", kind, S, B), mesh, cells.CellTuning())
+    rep = analyze_step(step, *args)
+    dist.destroy_process_group()
+    print(json.dumps(rep))
+""")
+# the count before the Mamba2 block ran each rank's heads through
+# ``local.mamba_mixer`` and the unembedding split its uneven vocab: every
+# rank formed in_proj's, out_proj's and the unembedding's products whole
+MAMBA_SMALL_DOT_FLOPS_BEFORE = 510166695936.0
+
+
+def _small_dryrun(arch, kind, B, S):
+    res = subprocess.run([sys.executable, "-c", _SMALL_DRYRUN, arch, kind, str(B), str(S)],
+                         env={**ENV, "CUDA_VISIBLE_DEVICES": ""}, capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def test_rank_flops_on_a_small_fake_mesh():
+    """One full-width layer as rank 0 of a (data, model) = (1, 16) fake mesh.
+    phi4-mini's prefill (1 x 2048, 24 query heads: they do not divide by
+    16): K1 once on the first zigzag chunk and twice on the last, exactly
+    1/16 of the whole layer's causal attention, where every rank ran all
+    24 heads before. mamba2-780m's train step (2 x 512): in_proj's products
+    are the rank's 403 stored columns, out_proj's its 192 rows, the
+    unembedding's its 3143 of the 50280 tokens (uneven), and no product
+    spans a whole in_proj, out_proj or vocabulary; the rank's product FLOPs
+    fall more than tenfold from ``MAMBA_SMALL_DOT_FLOPS_BEFORE``."""
+    cfg = ARCHS["phi4-mini-3.8b"]
+    rep = _small_dryrun("phi4-mini-3.8b", "prefill", 1, 2048)
+    whole = attention_bound_ms((1, 2048, 2048, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                                True), torch.bfloat16)[2]
+    k1 = rep["by_kernel"]["flash_attention"]
+    assert k1["calls"] == 3 and k1["flops"] * 16 == whole
+
+    cfg = ARCHS["mamba2-780m"]
+    rep = _small_dryrun("mamba2-780m", "train", 2, 512)
+    cols = 2 * cfg.ssm_d_inner + 2 * cfg.ssm_state + cfg.ssm_nheads
+    shapes = [k.split(" ", 1)[1] for k in rep["by_product"]]
+    assert f"(1024, {cfg.d_model}) @ ({cfg.d_model}, {cols // 16})" in shapes
+    assert f"(1024, {cfg.ssm_d_inner // 16}) @ ({cfg.ssm_d_inner // 16}, {cfg.d_model})" in shapes
+    assert f"(1024, {cfg.d_model}) @ ({cfg.d_model}, {-(-cfg.vocab_size // 16)})" in shapes
+    whole_dims = (cols, cfg.ssm_d_inner, cfg.vocab_size)
+    assert not any(str(d) in s.replace("(", " ").replace(")", " ").replace(",", " ").split()
+                   for s in shapes for d in whole_dims), shapes
+    assert rep["dot_flops"] * 10 < MAMBA_SMALL_DOT_FLOPS_BEFORE
 
 
 def test_dryrun_cell_on_a_fake_group():
