@@ -149,8 +149,12 @@ Phases, one JSON line each:
                  SageRuntime, each followed by a warm one), each policy in
                  a fresh process (``python3 chip_smoke.py --cold-runs
                  SYSTEM``): every request's gpu_ctx, gpu_data, compute and
-                 e2e, their medians, SAGE / FixedGSL; every cold compute
-                 within COLD_MAX_OVER_WARM x the warm median;
+                 e2e, their medians, per cold run the build's time, the
+                 allocator's counters and the weights' copy, the
+                 page-locked host bytes, SAGE / FixedGSL (all colds, the
+                 first, the later ones); every cold compute within
+                 COLD_MAX_OVER_WARM x the warm median, the first cold's
+                 ratio under 0.9, the later ones' at most 1.10;
 22. rank_bodies  the 16 rank bodies of distributed/local.py's attention
                  split by query rows (one full-width phi4-mini layer: 24
                  heads do not divide by 16) and of its Mamba2 block split
@@ -184,6 +188,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -903,6 +908,7 @@ def phase_full(phase, arch, fn_name):
                          vocab=cfg.vocab_size, seed=s) for s in range(6)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    gc.collect()  # as cold_runs does before each request
     reset_counts()  # -- the main path (full width) starts here
     t0 = time.monotonic()
     out_keys = [rt.sage_run(reqs[0])]
@@ -1353,6 +1359,85 @@ def phase_exit_ladder():
 
 COLD_RUNS = 3
 COLD_MAX_OVER_WARM = 1.15  # a cold request's compute stage over the warm median
+# SAGE / FixedGSL e2e: a fresh process's first cold request under the
+# reference's own bound (tests/test_system.py), the later colds' median
+COLD_MAX_FIRST_RATIO, COLD_MAX_LATER_RATIO = 0.9, 1.10
+COLD_MAX_PAGE_LOCKED = 1.1  # page-locked host bytes over the weights'
+# the caching allocator's counters whose change over a cold request cold_runs
+# reports (num_device_alloc only where this torch counts it)
+ALLOC_STATS = ("segment.all.allocated", "num_alloc_retries", "num_device_alloc")
+
+
+def alloc_stats() -> dict:
+    s = torch.cuda.memory_stats()
+    return {k: s[k] for k in ALLOC_STATS if k in s}
+
+
+def log_loads(db, fn) -> list:
+    """Wrap ``db.to_device``, ``db.fetch`` and ``fn.context_builder`` (on
+    these objects only) so that each host -> device copy, each end of a
+    modelled database leg and each context build is logged with its host
+    clock span and native thread id; returns the log, which grows as
+    requests run."""
+    log = []
+
+    def logged(kind, call, size=lambda *a: 0):
+        def run(*args, **kw):
+            t0 = time.monotonic()
+            out = call(*args, **kw)
+            log.append({"kind": kind, "t0": t0, "t1": time.monotonic(),
+                        "bytes": size(*args), "thread": threading.get_native_id()})
+            return out
+        return run
+
+    db.to_device = logged("copy", db.to_device,
+                          lambda obj: sum(t.numel() * t.element_size() for t in T.leaves(obj)
+                                          if isinstance(t, torch.Tensor)))
+    db.fetch = logged("fetch", db.fetch)
+    fn.context_builder = logged("build", fn.context_builder)
+    return log
+
+
+def log_collections() -> tuple:
+    """Log each garbage collection from now on as (start, seconds, its
+    generation) on the host clock; returns the log, which grows, and the
+    callback (to remove from ``gc.callbacks``). A full collection scans
+    every object of a process that has imported the port: one landing in
+    a request would be counted as the request's."""
+    log, start = [], [0.0]
+
+    def note(phase, info):
+        if phase == "start":
+            start[0] = time.monotonic()
+        else:
+            log.append((start[0], time.monotonic() - start[0], info["generation"]))
+
+    gc.callbacks.append(note)
+    return log, note
+
+
+def cold_run_loads(log, t0, cold, rt, weights_key) -> dict:
+    """What the log holds of the cold request that started at ``t0``: the
+    weights' copy (its seconds and thread), the span from the end of their
+    modelled database leg to the copy's start (the modelled PCIe leg and
+    the device admission), the modelled legs' seconds from the brokers'
+    rates, and the context build's seconds and thread."""
+    mine = [e for e in log if t0 <= e["t0"] and e["t1"] <= t0 + cold.e2e + 1.0]
+    copy = max((e for e in mine if e["kind"] == "copy"), key=lambda e: e["bytes"])
+    fetch = max((e for e in mine if e["kind"] == "fetch" and e["t1"] <= copy["t0"]),
+                key=lambda e: e["t1"])
+    build = [e for e in mine if e["kind"] == "build"]
+    declared = rt.db.size_of(weights_key)
+    legs = declared * SERVE_TIME_SCALE * (1 / rt.paths.db.base_bw + 1 / rt.paths.pcie.base_bw)
+    return {"copy_ms": ms(copy["t1"] - copy["t0"]), "copy_bytes": copy["bytes"],
+            "copy_gb_per_s": copy["bytes"] / (copy["t1"] - copy["t0"]) / 1e9,
+            "copy_thread": copy["thread"], "modelled_legs_ms": ms(legs),
+            "fetch_end_to_copy_ms": ms(copy["t0"] - fetch["t1"]),
+            "build_ms": [ms(e["t1"] - e["t0"]) for e in build],
+            "build_thread": [e["thread"] for e in build],
+            "copy_overlaps_build_ms": sum(
+                max(0.0, min(copy["t1"], e["t1"]) - max(copy["t0"], e["t0"])) * 1e3
+                for e in build)}
 
 
 def cold_runs(system: str) -> dict:
@@ -1361,33 +1446,75 @@ def cold_runs(system: str) -> dict:
     under ``system``, each on a new SageRuntime over one database (a new
     engine, so its context is built anew), each followed by one warm
     request. The first is the process's first forward at full width.
-    Returns the records, the context builds' reserved bytes and the
-    launches."""
+    Returns the records, the context builds' reserved bytes, per cold
+    request the device bytes allocated at its start, the allocator's
+    counters' change over it, its loads (``cold_run_loads``) and the
+    garbage collections that ran in it, the page-locked host bytes and the
+    launches. A full collection runs before each request: without it a
+    fresh process's first cold forward was 1.2-1.5 x the warm ones in 3 of
+    8 runs, with it in none of 9, although no full collection ran inside
+    the slow ones (PERF.md §6). Each request runs
+    inside a ``torch.profiler.record_function`` range named
+    ``cold/<run>/<kind>`` (``scripts/torch_cold_trace.py`` reads them)."""
     cfg = ARCHS["qwen2.5-3b"]
     db = Database(device="cuda")
     fn = _model_function(db, "cold", cfg, batch=FULL_BATCH, seq=FULL_SEQ, seed=0)
+    log = log_loads(db, fn)
+    collections, note = log_collections()
     runs = []
     reset_counts()  # -- the cold-setup path starts here
-    for _ in range(COLD_RUNS):
+    for i in range(COLD_RUNS):
         rt = SageRuntime(system, time_scale=SERVE_TIME_SCALE, load_timeout_s=120.0,
                          exit_ttl=600.0, device="cuda", database=db)
         rt.sage_init()
         rt.register_function(fn)
-        for s in (0, 1):  # a request's e2e counts from its making
-            rt.sage_run(make_request(db, fn, batch=FULL_BATCH, seq=FULL_SEQ,
-                                     vocab=cfg.vocab_size, seed=s))
+        alloc0 = {"allocated": torch.cuda.memory_allocated(),
+                  "reserved": torch.cuda.memory_reserved(), **alloc_stats()}
+        for s, kind in ((0, "cold"), (1, "warm")):  # a request's e2e counts from its making
+            gc.collect()
+            if kind == "cold":
+                t0 = time.monotonic()
+            with torch.profiler.record_function(f"cold/{i}/{kind}"):
+                rt.sage_run(make_request(db, fn, batch=FULL_BATCH, seq=FULL_SEQ,
+                                         vocab=cfg.vocab_size, seed=s))
+            if kind == "cold":
+                alloc1 = alloc_stats()
         eng = rt.engines["cold"]
         ctx = eng._shared_ctx or next(i.gpu_ctx for i in eng.instances if i.gpu_ctx)
-        runs.append({"cold": record(rt.telemetry.records[0]),
-                     "warm": record(rt.telemetry.records[1]),
-                     "context_reserved_bytes": ctx.reserved_bytes})
+        cold = rt.telemetry.records[0]
+        runs.append({"cold": record(cold), "warm": record(rt.telemetry.records[1]),
+                     "context_reserved_bytes": ctx.reserved_bytes,
+                     "context_build_ms": ms(ctx.build_s),
+                     "allocated_at_start": alloc0["allocated"],
+                     "reserved_at_start": alloc0["reserved"],
+                     "alloc_deltas": {k: alloc1[k] - alloc0[k] for k in alloc1},
+                     "loads": cold_run_loads(log, t0, cold, rt, "cold/weights"),
+                     "collections_in_cold": [(ms(dt), g) for t, dt, g in collections
+                                             if t0 <= t <= t0 + cold.e2e]})
         del eng, ctx
         rt.drain()
         rt.shutdown()
         del rt
+    gc.callbacks.remove(note)
     return {"system": system, "runs": runs, "launches": counts(),
             "context_launches": ctx_counts(), "context_builds": builds("cold"),
-            "declared_context_bytes": fn.context_bytes}
+            "declared_context_bytes": fn.context_bytes,
+            "weights_bytes": sum(t.numel() * t.element_size()
+                                 for t in T.leaves(db.fetch("cold/weights"))),
+            **host_pinned(db)}
+
+
+def host_pinned(db) -> dict:
+    """Page-locked host bytes: those the database's payloads are views of
+    (the weights), the counters of PyTorch's caching pinned allocator
+    (which stages the requests' tokens) where it has them, and the sum of
+    the first and the allocator's blocks."""
+    stats = torch.cuda.host_memory_stats() if hasattr(torch.cuda, "host_memory_stats") else {}
+    held = db.page_locked_bytes
+    return {"db_page_locked_bytes": held,
+            "host_allocator": {k: v for k, v in stats.items()
+                               if "bytes" in k or k.startswith("num_host")},
+            "page_locked_bytes": held + stats.get("allocated_bytes.current", 0)}
 
 
 def phase_cold_setup():
@@ -1395,11 +1522,18 @@ def phase_cold_setup():
     under FixedGSL (``cold_runs``), each policy in a fresh process of its
     own, so that its first cold request pays what a new worker process
     pays. Prints each cold request's gpu_ctx, gpu_data, compute and e2e,
-    their medians and SAGE / FixedGSL. Checks: every request served, cold
-    then warm; one context build and its launches per cold run, counted
-    apart from the requests' forwards; every cold request's compute within
-    COLD_MAX_OVER_WARM x the policy's warm median (the context carries the
-    first forward's shape-only work). Returns the launches."""
+    their medians, per cold run the context build's time, the device bytes
+    allocated at its start, the caching allocator's counters' change over
+    it and the weights' copy beside the modelled legs (``cold_run_loads``),
+    the page-locked host bytes, and SAGE / FixedGSL: over all the colds,
+    for the first and for the later ones. Checks: every request served,
+    cold then warm; one context build and its launches per cold run,
+    counted apart from the requests' forwards; every cold request's compute
+    within COLD_MAX_OVER_WARM x the policy's warm median (the context
+    carries the first forward's shape-only work); the page-locked host
+    bytes within COLD_MAX_PAGE_LOCKED x the weights'; the first cold's
+    SAGE / FixedGSL under COLD_MAX_FIRST_RATIO and the later colds' median
+    at most COLD_MAX_LATER_RATIO. Returns the launches."""
     out, total = {}, dict.fromkeys(KERNELS, 0)
     cfg = ARCHS["qwen2.5-3b"]
     for system in ("sage", "fixedgsl"):
@@ -1429,13 +1563,25 @@ def phase_cold_setup():
             "context_reserved_bytes": [r["context_reserved_bytes"] for r in got["runs"]],
             "declared_context_bytes": got["declared_context_bytes"],
             "context_builds": got["context_builds"], "launches": got["launches"],
-            "context_launches": got["context_launches"], "seconds": got["seconds"]}
+            "context_launches": got["context_launches"], "seconds": got["seconds"],
+            "build_ms": [r["context_build_ms"] for r in got["runs"]],
+            "collections_in_cold": [r["collections_in_cold"] for r in got["runs"]],
+            "allocated_at_start": [r["allocated_at_start"] for r in got["runs"]],
+            "alloc_deltas": [r["alloc_deltas"] for r in got["runs"]],
+            "loads": [r["loads"] for r in got["runs"]],
+            "weights_bytes": got["weights_bytes"],
+            "db_page_locked_bytes": got["db_page_locked_bytes"],
+            "page_locked_bytes": got["page_locked_bytes"],
+            "host_allocator": got["host_allocator"]}
     ratio = summary["sage"]["median_ms"]["e2e"] / summary["fixedgsl"]["median_ms"]["e2e"]
     first = (summary["sage"]["cold_ms"][0]["e2e"] / summary["fixedgsl"]["cold_ms"][0]["e2e"])
+    later = (statistics.median(c["e2e"] for c in summary["sage"]["cold_ms"][1:])
+             / statistics.median(c["e2e"] for c in summary["fixedgsl"]["cold_ms"][1:]))
     emit({"phase": "cold_setup", "arch": cfg.name, "batch": FULL_BATCH, "seq": FULL_SEQ,
           "time_scale": SERVE_TIME_SCALE, "runs": COLD_RUNS, "systems": summary,
           "sage_over_fixedgsl_median_e2e": ratio,
-          "sage_over_fixedgsl_first_cold_e2e": first})
+          "sage_over_fixedgsl_first_cold_e2e": first,
+          "sage_over_fixedgsl_later_colds_median_e2e": later})
     for system, got in out.items():
         sm = summary[system]
         check(all(r["cold"]["error"] is None and r["warm"]["error"] is None
@@ -1452,6 +1598,13 @@ def phase_cold_setup():
               f"cold_setup {system}: a cold request's compute is "
               f"{sm['cold_compute_over_warm']} x the warm median")
         check(min(c["gpu_ctx"] for c in sm["cold_ms"]) > 0, f"cold_setup {system}: no context")
+        check(0 < sm["page_locked_bytes"] <= COLD_MAX_PAGE_LOCKED * sm["weights_bytes"],
+              f"cold_setup {system}: {sm['page_locked_bytes']} page-locked host bytes for "
+              f"{sm['weights_bytes']} bytes of weights")
+    check(first < COLD_MAX_FIRST_RATIO,
+          f"cold_setup: a fresh process's first cold SAGE / FixedGSL e2e is {first}")
+    check(later <= COLD_MAX_LATER_RATIO,
+          f"cold_setup: the later colds' median SAGE / FixedGSL e2e is {later}")
     return total
 
 

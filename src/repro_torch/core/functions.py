@@ -41,7 +41,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import GPUFunction
 from repro_torch.core.profiles import MB, FunctionProfile
 from repro_torch.core.request import Data, DataType, Request
-from repro_torch.data.database import Database
+from repro_torch.data.database import Database, page_locked
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.models import forward, init_params
@@ -65,19 +65,11 @@ def _leaves(tree):
 def _host_params(cfg: ModelConfig, seed: int, device: torch.device) -> dict:
     """Seeded weights kept on the host. On a CUDA database they are drawn
     on the card (a CUDA generator; far faster than the CPU at full width)
-    and copied back one leaf at a time, so the daemon's load is a real
-    host -> device copy."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params = init_params(cfg, gen, device)
-    if device.type == "cpu":
-        return params
-
-    def to_host(tree):
-        if isinstance(tree, dict):
-            return {k: to_host(v) for k, v in tree.items()}
-        return tree.cpu()
-
-    return to_host(params)
+    and copied back into one page-locked buffer (``database.page_locked``),
+    once, so the daemon's load is a real host -> device copy from
+    page-locked memory."""
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
+    return params if device.type == "cpu" else page_locked(params)
 
 
 def warmup_config(cfg: ModelConfig) -> ModelConfig:

@@ -354,7 +354,30 @@ def merge_partials(acc: torch.Tensor, ml: torch.Tensor) -> torch.Tensor:
     return out[:, None]
 
 
+def _idle_axes(mesh, batch) -> list:
+    """The mesh dims other than ``model`` that the batch (split over the
+    dims in ``batch``) leaves idle, in mesh order."""
+    mi = _model_dim(mesh)
+    return [i for i in range(mesh.ndim) if i != mi and i not in batch and mesh.size(i) > 1]
+
+
+def _idle_rank(mesh, idle) -> tuple:
+    """(this rank's index over the ``idle`` dims, row-major in mesh order,
+    their number of ranks)."""
+    r, n = 0, 1
+    for i in idle:
+        r, n = r * mesh.size(i) + mesh.get_local_rank(i), n * mesh.size(i)
+    return r, n
+
+
 def decode_attention(q, k_cache, v_cache, lengths, **kw):
+    """K2 on a ``DTensor`` cache: each rank attends its batch rows against
+    its shard of the cache, merging the partials across ``model`` where the
+    cache's sequence is split over it (flash-decode). Where the batch
+    leaves axes other than ``model`` idle (a one-row decode), the query
+    heads are split over them too, as XLA's partitioner splits them: each
+    rank attends its Hq / n heads against the KV heads they read (sliced
+    from its cache shard), and the heads are gathered back."""
     _, Replicate, Shard = _pl()
     mesh = k_cache.device_mesh
     q, v_cache = _as_dtensor(q, mesh), _as_dtensor(v_cache, mesh)
@@ -364,17 +387,29 @@ def decode_attention(q, k_cache, v_cache, lengths, **kw):
     batch = _batch_axes(mesh, k_cache)
     cpl = _places(mesh, batch, 0, Shard(1) if seq else Replicate())
     qpl = _places(mesh, batch, 0, Replicate())
+    Hq, Hkv = q.shape[2], k_cache.shape[2]
+    idle = _idle_axes(mesh, batch)
+    r, n = _idle_rank(mesh, idle)
+    h, G = Hq // n, Hq // Hkv
+    if Hq % n or not (G % h == 0 or h % G == 0):
+        idle, r, n, h = [], 0, 1, Hq
 
     def fn(ql, kl, vl, ll):
-        ql = ql.contiguous()
+        ql = ql[:, :, r * h:(r + 1) * h].contiguous()
+        kv = slice(r * h // G, -(-(r + 1) * h // G))
+        kl, vl = kl[:, :, kv].contiguous(), vl[:, :, kv].contiguous()
         if not seq:
-            return ops.decode_attention(ql, kl, vl, ll, **kw)
-        L = kl.shape[1]
-        own = (ll - _rank(mesh) * L).clamp(0, L).to(torch.int32)
-        acc, ml = ops.decode_attention(ql, kl, vl, own, partials=True, **kw)
-        acc = all_gather(acc, 2, (mesh, mi))
-        ml = all_gather(ml, 2, (mesh, mi))
-        return merge_partials(acc, ml).to(ql.dtype)
+            out = ops.decode_attention(ql, kl, vl, ll, **kw)
+        else:
+            L = kl.shape[1]
+            own = (ll - _rank(mesh) * L).clamp(0, L).to(torch.int32)
+            acc, ml = ops.decode_attention(ql, kl, vl, own, partials=True, **kw)
+            acc = all_gather(acc, 2, (mesh, mi))
+            ml = all_gather(ml, 2, (mesh, mi))
+            out = merge_partials(acc, ml).to(ql.dtype)
+        for i in reversed(idle):  # the heads back, the innermost axis first
+            out = all_gather(out, 2, (mesh, i))
+        return out
 
     return local_map(fn, out_placements=(qpl,), in_placements=(qpl, cpl, cpl, qpl),
                      device_mesh=mesh, redistribute_inputs=True)(q, k_cache, v_cache,
@@ -507,6 +542,69 @@ def mamba_mixer(cfg, p, x, *, initial_state=None, return_state=False):
     return res
 
 
+def mamba_decode(cfg, p, x, ssm_state, conv_state):
+    """``mamba2.mamba_decode`` for a ``DTensor`` ``x`` (B, 1, D), whole over
+    ``model``: each rank steps its nh / tp SSD heads, as ``mamba_mixer``
+    runs them. in_proj's product: each rank multiplies its stored columns,
+    the products are all-gathered and the rank keeps its z, x and dt
+    columns and B and C whole. The ssm state comes in as the rank's heads
+    (the cache's layout). The conv state's split over ``model`` is
+    contiguous channels (``rules.cache_spec``), which do not line up with
+    the heads: it comes in whole (all-gathered: (B, W-1, conv_dim), a few
+    kB), each rank convolves its x channels and B and C, and the new state
+    goes out whole (the rank's new x channels all-gathered) to be written
+    back into the cache's split. The gated norm sums its squares over
+    ``model`` and out_proj's rows are the rank's, so the output is a
+    partial sum over ``model``. Heads that do not divide: every rank steps
+    them all."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
+
+    Partial, Replicate, Shard = _pl()
+    mesh = x.device_mesh
+    t = _tp(mesh)
+    split = t > 1 and cfg.ssm_nheads % t == 0
+    ranks = t if split else 1
+    ct = L.cdtype(cfg)
+    di, ns = cfg.ssm_d_inner, cfg.ssm_state
+    dr = di // ranks
+    cols = 2 * di + 2 * ns + cfg.ssm_nheads
+    stored = split and cols % t == 0
+    batch = _batch_axes(mesh, x)
+    rows = _places(mesh, batch, 0, Replicate())
+    heads = _places(mesh, batch, 0, Shard(1) if split else Replicate())
+    names = ("conv_w", "conv_b", "A_log", "D", "dt_bias", "norm")
+    args = [x, L.weight(p["in_proj"], ct), L.weight(p["out_proj"], ct),
+            *(_as_dtensor(p[n], mesh) for n in names), ssm_state, conv_state]
+    inp = [rows, _places(mesh, batch, None, Shard(1) if stored else Replicate()),
+           _places(mesh, batch, None, Shard(0) if split else Replicate()),
+           *[_places(mesh, batch, None, Replicate())] * len(names), heads, rows]
+    group = (mesh, _model_dim(mesh))
+    rank = _rank(mesh) if split else 0
+
+    def fn(xl, wi, wo, *rest):
+        pl = dict(zip(names, rest), in_proj=wi, out_proj=wo)
+        ssm, conv = rest[len(names):]
+        if not split:
+            return M.mamba_decode(cfg, pl, xl, ssm, conv)
+        proj = None
+        if stored:  # every rank's stored columns' product, gathered; this rank's columns
+            proj = M._take(all_gather(xl[:, 0].to(ct) @ wi, 1, group),
+                           M.own_columns(cfg, rank, ranks), -1)
+        mine = M._take(conv, [(rank * dr, dr), (di, 2 * ns)], 2)
+        out, new_ssm, new_conv = M.mamba_decode(
+            cfg, pl, xl, ssm, mine, rank=rank, ranks=ranks, proj=proj,
+            sum_ranks=lambda s: _SumOverModel.apply(s, group))
+        row = new_conv[:, -1:]  # the new row of the rank's channels: every rank's x, B, C
+        xs = all_gather(row[..., :dr].contiguous(), 2, group)
+        return out, new_ssm, torch.cat([conv[:, 1:], torch.cat([xs, row[..., dr:]], -1)], 1)
+
+    return local_map(fn, out_placements=(_places(mesh, batch, 0, Partial() if split
+                                                 else Replicate()), heads, rows),
+                     in_placements=tuple(inp), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
 # ---------------------------------------------------------------------------
 # the MoE FFN: experts over ``model``
 # ---------------------------------------------------------------------------
@@ -523,6 +621,17 @@ def moe_ffn(cfg, p, x, *, capacity_factor=None):
     is a partial sum over ``model``, reduced into the residual's placement
     where it is added (``act_sharding.placed_like``). E that does not
     divide by the model axis: every rank runs all experts and y is whole.
+
+    Where the batch leaves axes other than ``model`` idle (its rows split
+    over none of them: a one-row decode or prefill) and no gradient is
+    taken, the experts' d_ff is split over those axes too, so that each
+    rank forms its share of its experts' products (XLA's partitioner
+    splits them over the idle axes as well); y is then also a partial sum
+    over them. With a gradient the d_ff stays whole: the router's gradient
+    would be a partial sum over the idle axes through y but whole through
+    aux. No cell reaches that case (every train cell's microbatch splits
+    its rows over all of ``pod`` and ``data``: ``tests/test_torch_cells.py``
+    holds it), so the guard serves only a one-row training step.
 
     aux is the one-rank step's mean over the global batch: each rank's
     share of the routed fractions is all-reduced over the batch axes,
@@ -548,7 +657,18 @@ def moe_ffn(cfg, p, x, *, capacity_factor=None):
     epl = Shard(0) if esplit else Replicate()
     xpl = _places(mesh, batch, 0, Replicate())
     rpl = _places(mesh, batch, None, Replicate())
-    wpl = _places(mesh, batch, None, epl)
+    grad = torch.is_grad_enabled() and any(
+        w.requires_grad for w in (x, p["router"], p["wg"], p["wu"], p["wd"]))
+    idle = _idle_axes(mesh, batch)
+    if grad or p["wg"].shape[-1] % math.prod(mesh.size(i) for i in idle):
+        idle = []
+
+    def wpl(ff: int):  # experts over ``model``, d_ff (dim ``ff``) over the idle axes
+        return tuple(Shard(ff) if i in idle else pl
+                     for i, pl in enumerate(_places(mesh, batch, None, epl)))
+
+    ypl = tuple(Partial() if i in idle else pl
+                for i, pl in enumerate(_places(mesh, batch, 0, part)))
 
     def fn(xl, rl, wgl, wul, wdl):
         probs, gate_vals, gate_idx = L.moe_route(cfg, {"router": rl}, xl)
@@ -567,8 +687,8 @@ def moe_ffn(cfg, p, x, *, capacity_factor=None):
         return y, E * torch.sum(frac_tokens * frac_probs) / K
 
     y, aux = local_map(
-        fn, out_placements=(_places(mesh, batch, 0, part), _no_batch_grad(mesh, batch, part)),
-        in_placements=(xpl, rpl, wpl, wpl, wpl),
+        fn, out_placements=(ypl, _no_batch_grad(mesh, batch, part)),
+        in_placements=(xpl, rpl, wpl(2), wpl(2), wpl(1)),
         in_grad_placements=(_places(mesh, batch, 0, part), _no_batch_grad(mesh, batch, part),
                             *[_no_batch_grad(mesh, batch, epl)] * 3),
         device_mesh=mesh, redistribute_inputs=True)(

@@ -188,9 +188,14 @@ def build_cell(arch: str, shape_name: str, mesh):
     return _build_decode(cfg, shape, mesh, tuning)
 
 
-def _residual_policy(mesh, tuning: CellTuning) -> Dict[str, rules.P]:
+def _residual_policy(mesh, tuning: CellTuning, batch: int) -> Dict[str, rules.P]:
+    """The residual's layout: rows over the data axes where ``batch`` divides
+    them and is more than one row (as ``place_batch`` places the inputs; a
+    ``DTensor`` cannot reshape a one-row dim split even over a one-rank
+    axis), d_model over ``model`` per ``tuning``."""
     F = rules.fsdp_axes(mesh)
-    return {"residual": rules.P(F, None, "model" if tuning.residual == "model" else None)}
+    b_ax = F if batch % rules.dp_size(mesh) == 0 and batch > 1 else None
+    return {"residual": rules.P(b_ax, None, "model" if tuning.residual == "model" else None)}
 
 
 def _build_train(cfg: ModelConfig, shape: ShapeConfig, mesh, tuning: CellTuning, *,
@@ -204,7 +209,7 @@ def _build_train(cfg: ModelConfig, shape: ShapeConfig, mesh, tuning: CellTuning,
     if not is_dtensor(T.leaves(state["params"])[0]):
         state = place_state(cfg, mesh, state)
     batch = place_batch(cfg, mesh, batch_input_specs(cfg, shape), "train")
-    pol = _residual_policy(mesh, tuning)
+    pol = _residual_policy(mesh, tuning, shape.global_batch)
     inner = _in_cell(make_train_step(cfg, opt_cfg, microbatches=tuning.microbatches), pol)
 
     def train_step(state, batch):
@@ -234,7 +239,7 @@ def _build_prefill(cfg: ModelConfig, shape: ShapeConfig, mesh, tuning: CellTunin
     cshape = cache_shapes(cfg, shape.global_batch, shape.seq_len, enc_len)
     cache = _zeros_placed(mesh, cshape, rules.tree_cache_specs(cfg, mesh, cshape),
                           _device(params))
-    pol = _residual_policy(mesh, tuning)
+    pol = _residual_policy(mesh, tuning, shape.global_batch)
     step = _in_cell(make_prefill_step(cfg), pol)
     meta = {
         "mode": "prefill",

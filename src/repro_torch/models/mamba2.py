@@ -89,12 +89,6 @@ def _conv_init(gen, width: int, dim: int, dtype, device, lead=()) -> torch.Tenso
     return _uniform(gen, (*lead, width, dim), 1.0 / math.sqrt(width), dtype, device)
 
 
-def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
-    di, ns = cfg.ssm_d_inner, cfg.ssm_state
-    z, xc, dt_raw = torch.split(zxbcdt, [di, di + 2 * ns, cfg.ssm_nheads], dim=-1)
-    return z, xc, dt_raw  # xc = [x, B, C] (conv'd together)
-
-
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv1d. x: (B, S, C), w: (W, C). The same unrolled
     fp32 accumulation as the JAX version."""
@@ -181,6 +175,36 @@ def mixer(
     return out
 
 
+def _rank_proj(cfg: ModelConfig, p: dict, xin: torch.Tensor, rank: int, ranks: int, proj):
+    """The z/x/B/C/dt of rank ``rank`` of ``ranks``: ``proj`` where it is
+    given (its columns of in_proj's product, already computed), else
+    ``xin`` times its columns of ``p["in_proj"]`` (all of them when
+    ``ranks`` is 1). Split as (z, x B C, dt)."""
+    ct = cdtype(cfg)
+    if proj is not None:
+        zxbcdt = proj
+    elif ranks == 1:
+        zxbcdt = xin.to(ct) @ weight(p["in_proj"], ct)
+    else:
+        zxbcdt = xin.to(ct) @ _take(weight(p["in_proj"], ct), own_columns(cfg, rank, ranks), 1)
+    dr, hr = cfg.ssm_d_inner // ranks, cfg.ssm_nheads // ranks
+    return torch.split(zxbcdt, [dr, dr + 2 * cfg.ssm_state, hr], dim=-1)
+
+
+def _rank_params(cfg: ModelConfig, p: dict, rank: int, ranks: int):
+    """The conv weights of rank ``rank``'s channels (its x share, then B and
+    C; all of them when ``ranks`` is 1) and the dt bias, A_log and D of its
+    SSD heads."""
+    di, ns = cfg.ssm_d_inner, cfg.ssm_state
+    dr, hr = di // ranks, cfg.ssm_nheads // ranks
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    if ranks > 1:
+        chans = [(rank * dr, dr), (di, 2 * ns)]
+        conv_w, conv_b = _take(conv_w, chans, 1), _take(conv_b, chans, 0)
+    heads = slice(rank * hr, (rank + 1) * hr)
+    return conv_w, conv_b, p["dt_bias"][heads], p["A_log"][heads], p["D"][heads]
+
+
 def gated(cfg: ModelConfig, p: dict, xin: torch.Tensor, *,
           initial_state: Optional[torch.Tensor] = None, rank: int = 0, ranks: int = 1,
           proj=None):
@@ -190,23 +214,11 @@ def gated(cfg: ModelConfig, p: dict, xin: torch.Tensor, *,
     rank's z/x/B/C/dt columns of its product, already computed),
     ``initial_state`` the rank's heads."""
     B, S, _ = xin.shape
-    di, ns, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
-    dr, hr = di // ranks, nh // ranks
-    ct = cdtype(cfg)
-    if proj is not None:
-        zxbcdt = proj
-    elif ranks == 1:
-        zxbcdt = xin.to(ct) @ weight(p["in_proj"], ct)
-    else:
-        zxbcdt = xin.to(ct) @ _take(weight(p["in_proj"], ct), own_columns(cfg, rank, ranks), 1)
-    z, xbc, dt_raw = torch.split(zxbcdt, [dr, dr + 2 * ns, hr], dim=-1)
+    ns, hp = cfg.ssm_state, cfg.ssm_headdim
+    dr, hr = cfg.ssm_d_inner // ranks, cfg.ssm_nheads // ranks
+    z, xbc, dt_raw = _rank_proj(cfg, p, xin, rank, ranks, proj)
     conv_tail = xbc[:, S - (cfg.ssm_conv - 1):]  # pre-conv tail -> decode conv state
-    conv_w, conv_b = p["conv_w"], p["conv_b"]
-    heads = slice(rank * hr, (rank + 1) * hr)
-    dt_bias, A_log, Dp = p["dt_bias"][heads], p["A_log"][heads], p["D"][heads]
-    if ranks > 1:  # the conv's channels: the rank's x, then B and C
-        chans = [(rank * dr, dr), (di, 2 * ns)]
-        conv_w, conv_b = _take(conv_w, chans, 1), _take(conv_b, chans, 0)
+    conv_w, conv_b, dt_bias, A_log, Dp = _rank_params(cfg, p, rank, ranks)
     xbc = _causal_conv(xbc, conv_w, conv_b)
     x, Bm, Cm = torch.split(xbc, [dr, ns, ns], dim=-1)
     dt = F.softplus(dt_raw.float() + dt_bias)  # (B,S,H)
@@ -244,26 +256,44 @@ def mamba_decode(
     xin: torch.Tensor,         # (B, 1, D)
     ssm_state: torch.Tensor,   # (B, H, P, N)
     conv_state: torch.Tensor,  # (B, W-1, conv_dim)
+    *,
+    rank: int = 0,
+    ranks: int = 1,
+    sum_ranks=None,
+    proj=None,
 ):
     """One-token recurrent step; returns (out (B,1,D), ssm_state, conv_state),
-    new tensors (the caller writes them into its cache)."""
+    new tensors (the caller writes them into its cache). On rank ``rank`` of
+    ``ranks``' share of the SSD heads (all of them when ``ranks`` is 1;
+    plain tensors), as ``mixer``: ``ssm_state`` the rank's heads',
+    ``conv_state`` its channels [x share, B, C], ``proj`` its z/x/B/C/dt
+    columns of in_proj's product (or ``p["in_proj"]`` whole), ``sum_ranks``
+    the gated norm's sum over the ranks, and the output the rank's partial
+    sum of out_proj. A ``DTensor`` input (a cell on a mesh) runs each rank's
+    share through ``distributed.local.mamba_decode``."""
+    if is_dtensor(xin):
+        from repro_torch.distributed import local
+        return local.mamba_decode(cfg, p, xin, ssm_state, conv_state)
     B = xin.shape[0]
-    di, ns, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
-    ct = cdtype(cfg)
-    zxbcdt = xin[:, 0].to(ct) @ weight(p["in_proj"], ct)
-    z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
+    ns, hp = cfg.ssm_state, cfg.ssm_headdim
+    dr, hr = cfg.ssm_d_inner // ranks, cfg.ssm_nheads // ranks
+    z, xbc, dt_raw = _rank_proj(cfg, p, xin[:, 0], rank, ranks, proj)
     # roll conv state, apply conv at last position
     full = torch.cat([conv_state, xbc[:, None, :]], dim=1)  # (B, W, C)
     new_conv_state = full[:, 1:]
-    conv_out = torch.einsum("bwc,wc->bc", full.float(), p["conv_w"].float())
-    xbc = F.silu(conv_out + p["conv_b"].float()).to(xbc.dtype)
-    x, Bm, Cm = torch.split(xbc, [di, ns, ns], dim=-1)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B,H)
-    A = -torch.exp(p["A_log"])
-    xh = x.reshape(B, nh, hp)
+    conv_w, conv_b, dt_bias, A_log, Dp = _rank_params(cfg, p, rank, ranks)
+    conv_out = torch.einsum("bwc,wc->bc", full.float(), conv_w.float())
+    xbc = F.silu(conv_out + conv_b.float()).to(xbc.dtype)
+    x, Bm, Cm = torch.split(xbc, [dr, ns, ns], dim=-1)
+    dt = F.softplus(dt_raw.float() + dt_bias)  # (B,H)
+    A = -torch.exp(A_log)
+    xh = x.reshape(B, hr, hp)
     y, new_ssm = ssd_step_ref(ssm_state, xh, dt, A, Bm, Cm)
-    y = y + xh * p["D"][:, None].float()
-    y = y.reshape(B, di)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg.rmsnorm_eps)
-    out = y.to(ct) @ weight(p["out_proj"], ct)
+    y = y + xh * Dp[:, None].float()
+    g = y.reshape(B, dr) * F.silu(z.float()).to(y.dtype)
+    if ranks == 1:
+        ct = cdtype(cfg)
+        out = rms_norm(g, p["norm"], cfg.rmsnorm_eps).to(ct) @ weight(p["out_proj"], ct)
+    else:
+        out = norm_out(cfg, p, g, sum_ranks(sum_squares(g)), rank=rank, ranks=ranks)
     return out[:, None, :], new_ssm, new_conv_state

@@ -258,12 +258,19 @@ _RANKS = textwrap.dedent("""
     train("qwen_odd_heads_train", qwen.reduced(num_heads=3, num_kv_heads=1))
     serve("qwen_decode", qwen)
     train("mamba_train", ARCHS["mamba2-780m"].reduced())
+    # the decode step on each rank's SSD heads; the conv state's channel
+    # split (160 over 2) does not line up with the heads' x channels (64 a rank)
+    serve("mamba_decode", ARCHS["mamba2-780m"].reduced())
+    serve("jamba_decode", ARCHS["jamba-1.5-large-398b"].reduced())
     olmoe = ARCHS["olmoe-1b-7b"].reduced()
     # 4 experts: at model = 2 each rank runs 2 of them; 3 experts do not
     # divide, and every rank runs all 3
     train("olmoe_train", olmoe)
     train("olmoe_odd_experts_train", olmoe.reduced(num_experts=3))
     serve("olmoe_decode", olmoe)
+    # one row: at data = 2 it leaves ``data`` idle, and the decode's query
+    # heads and the experts' d_ff split over it
+    serve("olmoe_one_row_decode", olmoe, B=1)
     # llama4: the shared expert's dense MLP beside the experts
     train("llama4_train", ARCHS["llama4-maverick-400b-a17b"].reduced())
     dist.destroy_process_group()
@@ -279,10 +286,16 @@ def test_two_ranks_match_one_rank(layout, tmp_path):
     and with 3 query heads (heads that do not divide by the model axis),
     the reduced qwen2.5-3b prefill and decode cells (a cache split along the sequence at model =
     2: K2's partials merged across ranks) and the reduced mamba2-780m train
-    cell (SSD heads over model), and the reduced olmoe-1b-7b train cell
-    with 4 experts (2 a rank at model = 2) and with 3 (they do not divide:
-    every rank runs all 3), its prefill and decode cells, and the reduced
-    llama4 train cell (its shared expert beside the experts), each against the
+    cell (SSD heads over model) and its prefill and decode cells (the
+    decode step on each rank's heads, the conv state gathered and written
+    back into its channel split), the reduced jamba-1.5-large's prefill
+    and decode cells, and the reduced olmoe-1b-7b train cell with 4
+    experts (2 a rank at model = 2) and with 3 (they do not divide: every
+    rank runs all 3), its prefill and decode cells, with two rows and with
+    one (at data = 2 the decode's query heads and the experts' d_ff split
+    over the idle ``data``), and
+    the reduced llama4 train cell (its shared expert beside the experts),
+    each against the
     plain one-rank steps in the same process: losses (the router's aux
     term in them, a mean over the global batch) and grad norms (so the
     clip, 0.5, which every step hits) within 1e-5, the logits within 1e-5
@@ -302,7 +315,8 @@ def test_two_ranks_match_one_rank(layout, tmp_path):
         got, want = res[name]
         np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=name)
         assert want[1] > 0.5  # the first step's norm: the clip is hit
-    for name in ("qwen_decode", "olmoe_decode"):
+    for name in ("qwen_decode", "olmoe_decode", "olmoe_one_row_decode", "mamba_decode",
+                 "jamba_decode"):
         err, scale = res[name]
         assert err <= 1e-5 * max(1.0, scale), (name, res[name])
 
@@ -413,10 +427,12 @@ _SMALL_DRYRUN = textwrap.dedent("""
     from repro_torch.distributed.compat import init_fake_group
     from repro_torch.launch import cells
     arch, kind, B, S = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
-    init_fake_group(16)
-    mesh = init_device_mesh("cpu", (1, 16), mesh_dim_names=("data", "model"))
+    data, model = int(sys.argv[5]), int(sys.argv[6])
+    init_fake_group(data * model)
+    mesh = init_device_mesh("cpu", (data, model), mesh_dim_names=("data", "model"))
     cfg = dataclasses.replace(ARCHS[arch], num_layers=ARCHS[arch].period_len)
-    build = cells._build_prefill if kind == "prefill" else cells._build_train
+    build = {"prefill": cells._build_prefill, "train": cells._build_train,
+             "decode": cells._build_decode}[kind]
     step, args, _ = build(cfg, ShapeConfig("s", kind, S, B), mesh, cells.CellTuning())
     rep = analyze_step(step, *args)
     dist.destroy_process_group()
@@ -428,8 +444,9 @@ _SMALL_DRYRUN = textwrap.dedent("""
 MAMBA_SMALL_DOT_FLOPS_BEFORE = 510166695936.0
 
 
-def _small_dryrun(arch, kind, B, S):
-    res = subprocess.run([sys.executable, "-c", _SMALL_DRYRUN, arch, kind, str(B), str(S)],
+def _small_dryrun(arch, kind, B, S, data=1, model=16):
+    res = subprocess.run([sys.executable, "-c", _SMALL_DRYRUN, arch, kind, str(B), str(S),
+                          str(data), str(model)],
                          env={**ENV, "CUDA_VISIBLE_DEVICES": ""}, capture_output=True,
                          text=True, timeout=120, cwd=str(ROOT))
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
@@ -464,6 +481,69 @@ def test_rank_flops_on_a_small_fake_mesh():
     assert not any(str(d) in s.replace("(", " ").replace(")", " ").replace(",", " ").split()
                    for s in shapes for d in whole_dims), shapes
     assert rep["dot_flops"] * 10 < MAMBA_SMALL_DOT_FLOPS_BEFORE
+
+
+def test_rank_decode_products_on_a_small_fake_mesh():
+    """One full-width mamba2-780m block's decode step (B 2, a cache of 256)
+    as rank 0 of a (data, model) = (1, 16) fake mesh: the step runs the
+    rank's 3 of the 48 SSD heads (``local.mamba_decode``): in_proj's
+    product is the rank's 403 stored columns, out_proj's its 192 rows, and
+    no product spans a whole in_proj or out_proj."""
+    cfg = ARCHS["mamba2-780m"]
+    rep = _small_dryrun("mamba2-780m", "decode", 2, 256)
+    cols = 2 * cfg.ssm_d_inner + 2 * cfg.ssm_state + cfg.ssm_nheads
+    dr = cfg.ssm_d_inner // 16
+    shapes = [k.split(" ", 1)[1] for k in rep["by_product"]]
+    assert f"(2, {cfg.d_model}) @ ({cfg.d_model}, {cols // 16})" in shapes
+    assert f"(2, {dr}) @ ({dr}, {cfg.d_model})" in shapes
+    assert not any(f"({cfg.d_model}, {cols})" in k or f"({cfg.ssm_d_inner}, {cfg.d_model})" in k
+                   for k in shapes), shapes
+
+
+@pytest.mark.parametrize("B,heads", [(1, 8), (2, 16)], ids=["one_row", "two_rows"])
+def test_decode_heads_split_over_an_idle_data_axis(B, heads):
+    """One full-width qwen2.5-3b layer's decode step (a cache of 256) as
+    rank 0 of a (data, model) = (2, 8) fake mesh: K2 attends the rank's 32
+    cache positions (the sequence over ``model``). With one row the batch
+    leaves ``data`` idle and the 16 query heads split over it (8 a rank,
+    against their one KV head), as XLA's partitioner splits jamba-1.5-large
+    x long_500k's; with two rows each data rank takes its row and all 16
+    heads. K2's count is 4 x heads x head_dim x positions."""
+    cfg = ARCHS["qwen2.5-3b"]
+    rep = _small_dryrun("qwen2.5-3b", "decode", B, 256, data=2, model=8)
+    k2 = rep["by_kernel"]["decode_attention"]
+    assert k2["calls"] == 1 and k2["flops"] == 4 * heads * cfg.head_dim * (256 // 8)
+
+
+@pytest.mark.parametrize("kind,B,S,d_ff", [("decode", 2, 256, 512), ("prefill", 2, 16, 1024)])
+def test_expert_products_split_over_an_idle_data_axis(kind, B, S, d_ff):
+    """One full-width olmoe-1b-7b layer as rank 0 of a (data, model) = (2, 8)
+    fake mesh: each rank's 8 of the 64 experts. The decode step routes its
+    B tokens as one row, which leaves ``data`` idle, so the experts' d_ff
+    (1024) is split over it, as XLA's partitioner splits jamba-1.5-large x
+    long_500k's experts: the products are (8, 8, 2048) @ (8, 2048, 512) and
+    (8, 8, 512) @ (8, 512, 2048) (K = 8 capacity slots). The prefill's two
+    rows split over ``data``, and d_ff stays whole."""
+    rep = _small_dryrun("olmoe-1b-7b", kind, B, S, data=2, model=8)
+    shapes = [k.split(" ", 1)[1] for k in rep["by_product"]]
+    assert any(k.endswith(f"@ (8, 2048, {d_ff})") for k in shapes), shapes
+    assert any(k.endswith(f"@ (8, {d_ff}, 2048)") for k in shapes), shapes
+    assert not any(k.endswith(f"@ (8, 2048, {1536 - d_ff})") for k in shapes), shapes
+
+
+def test_no_train_cell_leaves_a_batch_axis_idle():
+    """``local.moe_ffn`` splits the experts' d_ff over the axes a batch
+    leaves idle only when no gradient is taken. No cell's training step
+    reaches the other case: on both production meshes every train cell's
+    microbatch has more than one row and its rows divide ``pod`` x
+    ``data``, so ``place_batch`` splits them over both."""
+    for multi_pod, dp in ((False, 16), (True, 2 * 16)):
+        for arch in ARCHS:
+            for shape in SHAPES.values():
+                if shape.kind != "train":
+                    continue
+                rows = shape.global_batch // cells.get_tuning(arch, shape.name).microbatches
+                assert rows > 1 and rows % dp == 0, (arch, shape.name, multi_pod, rows)
 
 
 def test_dryrun_cell_on_a_fake_group():

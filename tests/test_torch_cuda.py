@@ -1033,3 +1033,156 @@ def test_end_to_end_sage_beats_fixedgsl_cold_latency_on_the_card(cuda):
             recs[system].append(rec["e2e"])
     sage, fixed = (statistics.median(recs[s]) for s in ("sage", "fixedgsl"))
     assert sage < 0.9 * fixed, recs
+
+
+@pytest.mark.requires_cuda
+def test_database_copies_page_locked_leaves_bit_equal(cuda):
+    """``page_locked`` keeps a payload's tensors in one page-locked host
+    buffer (contiguous views; within 1.1 x their bytes plus a page a
+    tensor, which ``Database.page_locked_bytes`` counts once the payload is
+    stored), ``to_device`` copies them bit for bit and keeps the
+    containers; each destination comes from the default stream's blocks
+    (freed, the next allocation of its size there takes the same block).
+    A pageable tensor (a request's tokens, a transposed one) is copied bit
+    for bit through PyTorch's caching pinned allocator, and a hundred such
+    copies allocate no new pinned block."""
+    import collections
+    import mmap
+
+    from repro_torch.data.database import Database, page_locked, tensors
+
+    Pair = collections.namedtuple("Pair", "w meta")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    big = torch.randn((3, 70 << 20), generator=g, device=cuda).to(torch.bfloat16)
+    payload = {"p": Pair(big, [torch.arange(7, dtype=torch.int32), (7, 8)]),
+               "x": torch.randn((5, 3), generator=torch.Generator().manual_seed(1)).t(),
+               "s": torch.tensor(2.5)}
+    db = Database(device="cuda")
+    host = page_locked(payload)
+    db.put("k", host, size=1)
+    leaves = tensors(host)
+    assert all(t.device.type == "cpu" and t.is_pinned() and t.is_contiguous() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    assert nbytes <= db.page_locked_bytes <= 1.1 * nbytes + mmap.PAGESIZE * len(leaves)
+    got = db.to_device(host)
+    assert type(got["p"]) is Pair and got["p"].meta[1] == (7, 8)
+    for want, out in zip(tensors(payload), tensors(got)):
+        assert out.device.type == "cuda" and out.dtype == want.dtype
+        assert torch.equal(out.cpu(), want.cpu())
+    ptr, shape = got["p"].w.data_ptr(), got["p"].w.shape
+    del got, out
+    assert torch.empty(shape, dtype=torch.bfloat16, device=cuda).data_ptr() == ptr
+
+    tokens = torch.arange(4 * 1024, dtype=torch.int32).view(4, 1024)
+    pageable = {"tokens": tokens, "t": payload["x"]}
+    db.put("in", pageable, size=1)
+    assert not tokens.is_pinned() and not payload["x"].is_contiguous()
+    db.to_device(db.fetch("in"))
+    allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
+    for _ in range(100):
+        got = db.to_device(db.fetch("in"))
+        assert torch.equal(got["tokens"].cpu(), tokens) and torch.equal(got["t"].cpu(),
+                                                                        payload["x"])
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == allocs
+    assert db.page_locked_bytes <= 1.1 * nbytes + mmap.PAGESIZE * len(leaves)
+
+
+def _copy_beside(db, key, started):
+    """``db.to_device(db.fetch(key))`` on a thread of its own: the thread and
+    the host clock's (start, end) of the copy."""
+    import threading
+    import time
+
+    span = {}
+
+    def run():
+        span["start"] = time.monotonic()
+        started.set()
+        span["out"] = db.to_device(db.fetch(key))
+        torch.cuda.synchronize()
+        span["end"] = time.monotonic()
+
+    th = threading.Thread(target=run)
+    th.start()
+    return th, span
+
+
+@pytest.mark.requires_cuda
+def test_database_copy_is_not_queued_on_the_current_stream(cuda):
+    """While ``to_device`` of 4 GiB runs on another thread, a small kernel
+    on the default stream and ``current_stream().synchronize()`` return
+    before the copy ends: the copy runs on the database's own stream."""
+    import threading
+    import time
+
+    from repro_torch.data.database import Database, page_locked
+
+    db = Database(device="cuda")
+    db.put("big", page_locked(torch.ones(1 << 30, dtype=torch.float32, device=cuda)), size=1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    started = threading.Event()
+    th, span = _copy_beside(db, "big", started)
+    started.wait(10)
+    while torch.cuda.memory_allocated() < base + (1 << 32) and th.is_alive():
+        time.sleep(0.0005)  # the destination is allocated: the copy is under way
+    y = torch.ones(16, device=cuda) * 2
+    torch.cuda.current_stream().synchronize()
+    returned = time.monotonic()
+    th.join(60)
+    assert not th.is_alive() and "end" in span
+    assert float(y.sum()) == 32.0
+    assert returned < span["end"], (returned - span["start"], span["end"] - span["start"])
+    assert torch.equal(span["out"][-4:].cpu(), torch.ones(4))
+
+
+_BUILD_BESIDE = """
+import json, sys, threading, time
+import torch
+from repro_torch.configs import ARCHS
+from repro_torch.core.functions import _model_function
+from repro_torch.data.database import Database
+db = Database(device="cuda")
+fn = _model_function(db, "f", ARCHS["qwen2.5-3b"], batch=4, seq=1024, seed=0)
+torch.cuda.synchronize()
+copy = {}
+if sys.argv[1] == "beside":
+    def run():
+        copy["out"] = db.to_device(db.fetch("f/weights"))
+    th = threading.Thread(target=run)
+    th.start()
+t0 = time.monotonic()
+fn.context_builder()
+build = time.monotonic() - t0
+if sys.argv[1] == "beside":
+    th.join()
+print(json.dumps({"build_s": build}))
+"""
+
+
+@pytest.mark.requires_cuda
+def test_context_build_beside_the_weights_copy_takes_about_the_build_alone(cuda):
+    """A fresh process's first context build of the full-width qwen2.5-3b
+    (4 x 1024) while another thread copies its 6.17 GB of weights to the
+    card takes at most 1.25 x the build alone plus 50 ms (medians of two
+    fresh processes each, in turns): the build waits for its own work,
+    not for the copy. The kernel libraries are built first."""
+    import json
+    import os
+    import statistics
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    fa.load()
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    got = {"alone": [], "beside": []}
+    for _ in range(2):
+        for mode in ("alone", "beside"):
+            res = subprocess.run([sys.executable, "-c", _BUILD_BESIDE, mode], env=env,
+                                 cwd=str(root), capture_output=True, text=True, timeout=300)
+            assert res.returncode == 0, res.stderr[-4000:]
+            got[mode].append(json.loads(res.stdout.strip().splitlines()[-1])["build_s"])
+    alone, beside = (statistics.median(got[m]) for m in ("alone", "beside"))
+    assert beside <= 1.25 * alone + 0.05, got
