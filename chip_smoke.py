@@ -150,9 +150,13 @@ Phases, one JSON line each:
                  a fresh process (``python3 chip_smoke.py --cold-runs
                  SYSTEM``): every request's gpu_ctx, gpu_data, compute and
                  e2e, their medians, per cold run the build's time, the
-                 allocator's counters and the weights' copy, the
-                 page-locked host bytes, SAGE / FixedGSL (all colds, the
-                 first, the later ones); every cold compute within
+                 allocator's counters, the weights' copy and the build's
+                 and the compute's host account (wall and thread CPU ms,
+                 new device segments, the forward's issue and its
+                 unembedding span), no collection forced before any
+                 request, the page-locked host bytes, SAGE / FixedGSL
+                 (all colds, the first, the later ones); every cold
+                 compute within
                  COLD_MAX_OVER_WARM x the warm median, the first cold's
                  ratio under 0.9, the later ones' at most 1.10;
 22. rank_bodies  the 16 rank bodies of distributed/local.py's attention
@@ -892,7 +896,6 @@ def phase_full(phase, arch, fn_name):
     then a burst of 4 concurrent requests. Returns the launches by kernel."""
     cfg = ARCHS[arch]
     check(cfg.param_dtype == cfg.compute_dtype == "bfloat16", "full width is bf16")
-    gc.collect()
     base_alloc = torch.cuda.memory_allocated()
     time_scale, load_timeout_s = 1.0, 120.0
     rt = SageRuntime("sage", time_scale=time_scale, load_timeout_s=load_timeout_s,
@@ -908,7 +911,6 @@ def phase_full(phase, arch, fn_name):
                          vocab=cfg.vocab_size, seed=s) for s in range(6)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gc.collect()  # as cold_runs does before each request
     reset_counts()  # -- the main path (full width) starts here
     t0 = time.monotonic()
     out_keys = [rt.sage_run(reqs[0])]
@@ -1416,6 +1418,175 @@ def log_collections() -> tuple:
     return log, note
 
 
+_TICK_MS = 1e3 / os.sysconf("SC_CLK_TCK")
+
+
+def _read(path: str) -> str:
+    try:
+        with open(path) as f:
+            return f.read()
+    except OSError:
+        return ""
+
+
+def task_cpu() -> dict:
+    """Each native thread of this process: {tid: [name, CPU ms, run-queue
+    wait ms]} from /proc/self/task/*/schedstat (ns; where it is missing,
+    utime + stime of stat at the clock tick's resolution and no wait)."""
+    py = {t.native_id: t.name for t in threading.enumerate()}
+    out = {}
+    for tid in os.listdir("/proc/self/task"):
+        stat = _read(f"/proc/self/task/{tid}/stat")
+        if not stat:
+            continue  # the thread ended
+        fields = stat[stat.rindex(")") + 2:].split()
+        cpu, wait = (int(fields[11]) + int(fields[12])) * _TICK_MS, None
+        sched = _read(f"/proc/self/task/{tid}/schedstat").split()
+        if len(sched) == 3:
+            cpu, wait = int(sched[0]) / 1e6, int(sched[1]) / 1e6
+        out[int(tid)] = [py.get(int(tid), stat[stat.index("(") + 1:stat.rindex(")")]), cpu, wait]
+    return out
+
+
+def _delta(a: dict, b: dict) -> dict:
+    return {k: b[k] - a[k] for k in b if k in a and b[k] != a[k]}
+
+
+@contextlib.contextmanager
+def host_window(out: dict, collections: list):
+    """Fill ``out`` with what the host did over the ``with`` block (a whole
+    request: these reads cost milliseconds, so they stay outside the
+    stages): its start (``t``, host clock), wall ms, the calling thread's
+    CPU ms and ``RUSAGE_THREAD`` deltas (``clocks``), every native
+    thread's CPU and run-queue wait ms (``task_cpu``; those that ran), the
+    garbage collections inside it (ms from its start, ms, generation) and
+    the caching allocators' counter deltas."""
+    tasks0, a0 = task_cpu(), alloc_stats()
+    h0 = torch.cuda.host_memory_stats() if hasattr(torch.cuda, "host_memory_stats") else {}
+    c0 = clocks()
+    yield out
+    span = between(c0, clocks())
+    a1 = alloc_stats()
+    h1 = torch.cuda.host_memory_stats() if hasattr(torch.cuda, "host_memory_stats") else {}
+    tasks1, ran = task_cpu(), []
+    for tid, (name, cpu, wait) in tasks1.items():
+        _, cpu0, wait0 = tasks0.get(tid, (name, 0.0, 0.0 if wait is not None else None))
+        if cpu - cpu0 > 0:
+            ran.append([name, tid, cpu - cpu0, None if wait is None else wait - wait0])
+    out.update({
+        **span, "thread": threading.get_native_id(),
+        "threads_ms": sorted(ran, key=lambda r: -r[2]),
+        "collections": [(ms(t - c0[0]), ms(dt), g) for t, dt, g in collections if c0[0] <= t],
+        "alloc_deltas": _delta(a0, a1),
+        "host_alloc_deltas": {k: v for k, v in _delta(h0, h1).items()
+                              if k.startswith("num_") or "bytes.current" in k}})
+
+
+RUSAGE_KEYS = ("ru_minflt", "ru_majflt", "ru_nvcsw", "ru_nivcsw")
+
+
+def clocks() -> tuple:
+    """The host clock, the calling thread's CPU clock (s) and its
+    ``RUSAGE_THREAD`` faults and context switches: cheap enough to read
+    inside a stage."""
+    import resource
+
+    r = resource.getrusage(resource.RUSAGE_THREAD)
+    return (time.monotonic(), time.thread_time(), *(getattr(r, k) for k in RUSAGE_KEYS))
+
+
+def between(a: tuple, b: tuple) -> dict:
+    """``clocks`` ``a`` to ``b``: start, wall and thread CPU ms, rusage deltas."""
+    return {"t": a[0], "wall_ms": ms(b[0] - a[0]), "thread_cpu_ms": ms(b[1] - a[1]),
+            "rusage": {k: y - x for k, x, y in zip(RUSAGE_KEYS, a[2:], b[2:])}}
+
+
+def layer_marks():
+    """Marks at each period boundary of a forward: the model's residual
+    ``constrain`` after every period is wrapped (in this process) so that,
+    while ``marks.on`` holds a list on the calling thread, each call adds
+    its host clock and a CUDA event recorded on the current stream.
+    Returns ``marks`` (a ``threading.local``)."""
+    from repro_torch.models import model as M
+
+    marks, plain = threading.local(), M.constrain
+    marks.on = None
+
+    def constrain(h, name):
+        h = plain(h, name)
+        on = getattr(marks, "on", None)
+        if on is not None:
+            on.append(mark())
+        return h
+
+    M.constrain = constrain
+    return marks
+
+
+def mark() -> tuple:
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return time.monotonic(), ev
+
+
+def probe_host(fn) -> list:
+    """Wrap ``fn.handler`` and ``fn.context_builder`` (on this object only)
+    so that each build and each compute (the handler) logs its ``clocks``
+    span and the caching allocator's counters' change over it, and each
+    compute the start and end of its forward's issue with a mark after
+    every period of layers (``layer_marks``); returns the log of
+    ``{"kind": "build" | "compute", ...}``, which grows as requests run
+    (``probe_record`` reads an entry once its work is done)."""
+    log, marks = [], layer_marks()
+    build, handler = fn.context_builder, fn.handler
+
+    def probed_build():
+        a0, c0 = alloc_stats(), clocks()
+        ctx = build()
+        log.append({"kind": "build", **between(c0, clocks()),
+                    "alloc_deltas": _delta(a0, alloc_stats())})
+        plain = ctx.fwd
+
+        def fwd(p, t):
+            rec = log[-1]
+            marks.on = rec["marks"] = [mark()]
+            try:
+                return plain(p, t)
+            finally:
+                marks.on = None
+                rec["marks"].append(mark())
+
+        ctx.fwd = fwd
+        return ctx
+
+    def probed_handler(shim, request):
+        rec, a0, c0 = {"kind": "compute"}, alloc_stats(), clocks()
+        log.append(rec)
+        try:
+            return handler(shim, request)
+        finally:
+            rec.update(between(c0, clocks()), alloc_deltas=_delta(a0, alloc_stats()))
+
+    fn.context_builder, fn.handler = probed_build, probed_handler
+    return log
+
+
+def probe_record(rec: dict, t0: float) -> dict:
+    """A ``probe_host`` entry with its times in ms from ``t0``, and its
+    marks as per span (embedding and period 0, each later period, the
+    final norm and unembedding) the host's ms to issue it and the device's
+    ms to run it."""
+    out = {k: v for k, v in rec.items() if k not in ("marks", "t")}
+    out["start_ms"] = ms(rec["t"] - t0)
+    marks = rec.get("marks")
+    if marks:
+        out.update(issue_start_ms=ms(marks[0][0] - rec["t"]),
+                   issue_end_ms=ms(marks[-1][0] - rec["t"]),
+                   host_ms=[ms(b[0] - a[0]) for a, b in zip(marks, marks[1:])],
+                   device_ms=[a[1].elapsed_time(b[1]) for a, b in zip(marks, marks[1:])])
+    return out
+
+
 def cold_run_loads(log, t0, cold, rt, weights_key) -> dict:
     """What the log holds of the cold request that started at ``t0``: the
     weights' copy (its seconds and thread), the span from the end of their
@@ -1440,27 +1611,38 @@ def cold_run_loads(log, t0, cold, rt, weights_key) -> dict:
                 for e in build)}
 
 
-def cold_runs(system: str) -> dict:
+def cold_runs(system: str, settle=None) -> dict:
     """In this process (``chip_smoke.py --cold-runs SYSTEM``): COLD_RUNS cold
     requests of the full-width qwen2.5-3b (6.17 GB, bf16, seed 0, 4 x 1024)
     under ``system``, each on a new SageRuntime over one database (a new
     engine, so its context is built anew), each followed by one warm
     request. The first is the process's first forward at full width.
-    Returns the records, the context builds' reserved bytes, per cold
-    request the device bytes allocated at its start, the allocator's
-    counters' change over it, its loads (``cold_run_loads``) and the
-    garbage collections that ran in it, the page-locked host bytes and the
-    launches. A full collection runs before each request: without it a
-    fresh process's first cold forward was 1.2-1.5 x the warm ones in 3 of
-    8 runs, with it in none of 9, although no full collection ran inside
-    the slow ones (PERF.md §6). Each request runs
-    inside a ``torch.profiler.record_function`` range named
-    ``cold/<run>/<kind>`` (``scripts/torch_cold_trace.py`` reads them)."""
+    Nothing runs between the requests but the probes' reads, outside the
+    requests' spans; ``settle(slot)``, where given, runs before each
+    (``scripts/torch_cold_compare.py``'s arms: a garbage collection or a
+    sleep). Returns the records, the context builds' reserved bytes, per
+    cold request the device bytes allocated at its start, the allocator's
+    counters' change over it, its loads (``cold_run_loads``), the garbage
+    collections that ran in it and per request the host's account
+    (``host_window``, with the build's and the compute's ``probe_host``
+    spans inside), the page-locked host bytes and the launches. No
+    collection is forced before a request. One was, because without it a
+    fresh process's first FixedGSL forward ran up to 2.11 x a warm one (3
+    of 8 runs on an H100 80GB HBM3 at 700 W); the attribution (PERF.md
+    §6) found that forward calling cudaMalloc for a new 2.49 GB segment
+    for its logits, the weights' copy having taken the blocks the
+    context's warm-up left for them, and the collection did not prevent
+    it (2 slow of 12 with it, 0 of 12 without). Contexts now run their warm-ups and forwards on a compute
+    stream whose blocks the copy cannot take
+    (``core.functions.compute_stream``). Each request runs inside a
+    ``torch.profiler.record_function`` range named ``cold/<run>/<kind>``
+    (``scripts/torch_cold_trace.py`` reads them)."""
     cfg = ARCHS["qwen2.5-3b"]
     db = Database(device="cuda")
     fn = _model_function(db, "cold", cfg, batch=FULL_BATCH, seq=FULL_SEQ, seed=0)
     log = log_loads(db, fn)
     collections, note = log_collections()
+    probes = probe_host(fn)
     runs = []
     reset_counts()  # -- the cold-setup path starts here
     for i in range(COLD_RUNS):
@@ -1470,15 +1652,23 @@ def cold_runs(system: str) -> dict:
         rt.register_function(fn)
         alloc0 = {"allocated": torch.cuda.memory_allocated(),
                   "reserved": torch.cuda.memory_reserved(), **alloc_stats()}
+        settled, windows = {}, {}
         for s, kind in ((0, "cold"), (1, "warm")):  # a request's e2e counts from its making
-            gc.collect()
-            if kind == "cold":
-                t0 = time.monotonic()
-            with torch.profiler.record_function(f"cold/{i}/{kind}"):
-                rt.sage_run(make_request(db, fn, batch=FULL_BATCH, seq=FULL_SEQ,
-                                         vocab=cfg.vocab_size, seed=s))
+            if settle is not None:
+                t = time.monotonic()
+                settle(2 * i + s)
+                settled[kind] = ms(time.monotonic() - t)
+            n_probes, windows[kind] = len(probes), {}
+            with host_window(windows[kind], collections):
+                if kind == "cold":
+                    t0 = time.monotonic()
+                with torch.profiler.record_function(f"cold/{i}/{kind}"):
+                    rt.sage_run(make_request(db, fn, batch=FULL_BATCH, seq=FULL_SEQ,
+                                             vocab=cfg.vocab_size, seed=s))
             if kind == "cold":
                 alloc1 = alloc_stats()
+            windows[kind]["inside"] = [probe_record(r, windows[kind]["t"])
+                                       for r in probes[n_probes:]]
         eng = rt.engines["cold"]
         ctx = eng._shared_ctx or next(i.gpu_ctx for i in eng.instances if i.gpu_ctx)
         cold = rt.telemetry.records[0]
@@ -1490,7 +1680,9 @@ def cold_runs(system: str) -> dict:
                      "alloc_deltas": {k: alloc1[k] - alloc0[k] for k in alloc1},
                      "loads": cold_run_loads(log, t0, cold, rt, "cold/weights"),
                      "collections_in_cold": [(ms(dt), g) for t, dt, g in collections
-                                             if t0 <= t <= t0 + cold.e2e]})
+                                             if t0 <= t <= t0 + cold.e2e],
+                     **({"settle_ms": settled} if settle is not None else {}),
+                     "account": cold_account(windows), "host": windows})
         del eng, ctx
         rt.drain()
         rt.shutdown()
@@ -1502,6 +1694,23 @@ def cold_runs(system: str) -> dict:
             "weights_bytes": sum(t.numel() * t.element_size()
                                  for t in T.leaves(db.fetch("cold/weights"))),
             **host_pinned(db)}
+
+
+def cold_account(windows: dict) -> dict:
+    """What named the slow first forwards, for one cold request of
+    ``cold_runs`` (its ``host_window``s): its build's and its compute's
+    wall and thread CPU ms and new device segments (the allocator's
+    ``segment.all.allocated`` change), and the forward's host ms to issue
+    it whole and its last span (the final norm and the unembedding, where
+    a new segment for the logits lands)."""
+    out = {}
+    for w in windows["cold"]["inside"]:
+        out[w["kind"]] = {"wall_ms": w["wall_ms"], "thread_cpu_ms": w["thread_cpu_ms"],
+                          "new_segments": w["alloc_deltas"].get("segment.all.allocated", 0)}
+        if "host_ms" in w:
+            out[w["kind"]].update(issue_ms=w["issue_end_ms"] - w["issue_start_ms"],
+                                  unembed_host_ms=w["host_ms"][-1])
+    return out
 
 
 def host_pinned(db) -> dict:
@@ -1525,7 +1734,10 @@ def phase_cold_setup():
     their medians, per cold run the context build's time, the device bytes
     allocated at its start, the caching allocator's counters' change over
     it and the weights' copy beside the modelled legs (``cold_run_loads``),
-    the page-locked host bytes, and SAGE / FixedGSL: over all the colds,
+    the build's and the compute's host account (``cold_account``: a new
+    device segment inside a compute is what made a fresh process's first
+    FixedGSL forward slow), the page-locked host bytes, and SAGE /
+    FixedGSL: over all the colds,
     for the first and for the later ones. Checks: every request served,
     cold then warm; one context build and its launches per cold run,
     counted apart from the requests' forwards; every cold request's compute
@@ -1566,6 +1778,7 @@ def phase_cold_setup():
             "context_launches": got["context_launches"], "seconds": got["seconds"],
             "build_ms": [r["context_build_ms"] for r in got["runs"]],
             "collections_in_cold": [r["collections_in_cold"] for r in got["runs"]],
+            "cold_account": [r["account"] for r in got["runs"]],
             "allocated_at_start": [r["allocated_at_start"] for r in got["runs"]],
             "alloc_deltas": [r["alloc_deltas"] for r in got["runs"]],
             "loads": [r["loads"] for r in got["runs"]],

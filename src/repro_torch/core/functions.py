@@ -24,9 +24,21 @@ the bytes the allocator then holds in reserve beyond what it held before
 are ``ModelContext.reserved_bytes``, beside the declared
 ``GPUFunction.context_bytes``. The warm-up's kernel launches are counted
 apart in ``context_launches``.
+
+On the card every context's warm-up and forward run on one compute
+stream per device (``compute_stream``), as XLA runs its executables on
+the device's compute stream. The caching allocator keeps each stream's
+free blocks apart, so the weights' copy, whose destinations are
+allocated on the loader's stream, cannot take the blocks a warm-up left
+for the forward. Under FixedGSL that copy runs between the build and the
+first forward; when both shared the default stream's blocks, the copy
+took some, and a fresh process's first full-width qwen2.5-3b forward
+called cudaMalloc for a new 2.49 GB segment for its logits inside its
+compute stage (on an H100 80GB HBM3 at 700 W, PERF.md §6).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -87,16 +99,42 @@ class ModelContext:
     """A built GPU context: the forward callable (``ctx(p, t)``) and what
     its build did (``build_s``, the warm-up's ``launches``, the bytes the
     caching allocator reserved beyond what it held before,
-    ``reserved_bytes``)."""
+    ``reserved_bytes``). With a ``stream`` (on the card) the forward runs
+    there, ordered after the work queued so far on the caller's stream,
+    and the caller's stream waits for it, so that its output and inputs
+    are the caller's to use and free as if it had run there: a block one
+    stream frees is reused by that stream's later work only, which waits
+    for the other's (every caller uses the default stream)."""
 
-    def __init__(self, fwd, build_s: float, launches: dict, reserved_bytes: int):
+    def __init__(self, fwd, build_s: float, launches: dict, reserved_bytes: int,
+                 stream=None):
         self.fwd = fwd
         self.build_s = build_s
         self.launches = launches
         self.reserved_bytes = reserved_bytes
+        self.stream = stream
 
     def __call__(self, p, t):
-        return self.fwd(p, t)
+        if self.stream is None:
+            return self.fwd(p, t)
+        caller = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(caller)
+        with torch.cuda.stream(self.stream):
+            out = self.fwd(p, t)
+        caller.wait_stream(self.stream)
+        return out
+
+
+_streams: dict = {}
+
+
+def compute_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The stream that every context's warm-up and forward on ``device``
+    runs on, made at first use."""
+    with _ctx_lock:
+        if device not in _streams:
+            _streams[device] = torch.cuda.Stream(device)
+        return _streams[device]
 
 
 def warm_up(cfg: ModelConfig, batch: int, seq: int, device: torch.device) -> dict:
@@ -117,9 +155,7 @@ def warm_up(cfg: ModelConfig, batch: int, seq: int, device: torch.device) -> dic
     if device.type != "cuda":
         return {}
     # the warm-up's own work, not the whole device's: under SAGE the
-    # weights' copies run beside it on the same default stream (on a
-    # stream of its own the allocator would keep its blocks, ~5.6 GB at
-    # full width, from the forward's stream)
+    # weights' copies run beside it on the database's stream
     torch.cuda.current_stream(device).synchronize()
     launched = {k: n for k, n in warmup_launches(cfg).items() if n}
     with _ctx_lock:
@@ -181,7 +217,11 @@ def _model_function(
         held = torch.cuda.memory_reserved(db.device) if cuda else 0
         for k in kernels:
             k.load()
-        launched = warm_up(cfg, batch, seq, db.device)
+        stream = compute_stream(db.device) if cuda else None
+        if cuda:
+            stream.wait_stream(torch.cuda.current_stream(db.device))
+        with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
+            launched = warm_up(cfg, batch, seq, db.device)
         with _ctx_lock:
             context_builds[fn_name] += 1
         reserved = torch.cuda.memory_reserved(db.device) - held if cuda else 0
@@ -191,7 +231,7 @@ def _model_function(
             with torch.inference_mode():
                 return forward(cfg, p, {"tokens": t})[0]
 
-        return ModelContext(fwd, time.monotonic() - t0, launched, reserved)
+        return ModelContext(fwd, time.monotonic() - t0, launched, reserved, stream)
 
     def handler(shim, request: Request):
         w = shim.sage_load_to_gpu(weights_key)

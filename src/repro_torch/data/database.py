@@ -163,13 +163,15 @@ class Database:
 
         On a CUDA database, as ``jax.device_put`` copies: each host tensor's
         destination is allocated on the calling thread's current stream
-        (the forwards' stream, whose blocks it will go back to); the copies
-        run on the database's stream, from page-locked memory (a pageable
-        or non-contiguous tensor is first copied into a block of PyTorch's
-        caching pinned allocator), in ``non_blocking`` pieces of at most
-        ``_PIECE`` bytes, two queued at a time, ordered after the work
-        queued so far on the forwards' stream (which may have used those
-        blocks); the host returns once the last piece is done."""
+        (the default stream, whose blocks it will go back to; the
+        runtime's forwards run on ``core.functions.compute_stream``, whose
+        blocks it cannot take); the copies run on the database's stream,
+        from page-locked memory (a pageable or non-contiguous tensor is
+        first copied into a block of PyTorch's caching pinned allocator),
+        in ``non_blocking`` pieces of at most ``_PIECE`` bytes, two queued
+        at a time, ordered after the work queued so far on the calling
+        stream (which may have used those blocks); the host returns once
+        the last piece is done."""
         if self.device.type != "cuda":
             return map_tensors(obj, lambda t: t.to(self.device))
         copies = []

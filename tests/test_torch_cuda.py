@@ -1186,3 +1186,39 @@ def test_context_build_beside_the_weights_copy_takes_about_the_build_alone(cuda)
             got[mode].append(json.loads(res.stdout.strip().splitlines()[-1])["build_s"])
     alone, beside = (statistics.median(got[m]) for m in ("alone", "beside"))
     assert beside <= 1.25 * alone + 0.05, got
+
+
+@pytest.mark.requires_cuda
+def test_first_forward_after_the_weights_copy_allocates_no_segment(cuda):
+    """FixedGSL's order on one thread: the context build (its warm-up at
+    the request's shapes), then the weights' copy, then the first forward.
+    The copy must not take the blocks the warm-up left for the forward:
+    the forward allocates no new device segment (on the default stream
+    the copy split them and a fresh process's first cold FixedGSL forward
+    called cudaMalloc for a 2.49 GB segment for its logits inside its
+    compute stage on an H100 80GB HBM3 at 700 W). The full-width
+    qwen2.5-3b at 4 x 1024 in this process, from an emptied cache, the
+    served logits against the plain forward of the same weights."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.functions import _model_function
+    from repro_torch.data.database import Database
+    from repro_torch.models import forward
+
+    fa.load()
+    cfg = ARCHS["qwen2.5-3b"]
+    db = Database(device="cuda")
+    fn = _model_function(db, "seg", cfg, batch=4, seq=1024, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ctx = fn.context_builder()
+    weights = db.to_device(db.fetch("seg/weights"))
+    tokens = torch.randint(0, cfg.vocab_size, (4, 1024), dtype=torch.int32, device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["segment.all.allocated"]
+    got = ctx(weights, tokens)[:, -1]
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["segment.all.allocated"] == before
+    with torch.inference_mode():
+        want = forward(cfg, weights, {"tokens": tokens})[0][:, -1]
+    assert torch.equal(got, want)

@@ -25,6 +25,7 @@ import pytest
 pytest.importorskip("torch")
 
 from repro_torch.api import FunctionSpec, Gateway  # noqa: E402
+from repro_torch.core import daemon as daemon_mod  # noqa: E402
 from repro_torch.core.baselines import SYSTEMS, get_system  # noqa: E402
 from repro_torch.core.daemon import (  # noqa: E402
     DataLoadError, MemoryDaemon, OutOfDeviceMemory, Tier,
@@ -411,6 +412,61 @@ def test_unpooled_daemon_still_propagates_failures():
     with pytest.raises(DataLoadError):
         h.wait(5)
     assert d.device_used == 0 and d.host_used == 0
+
+
+class ThreadLoggingDB(SlowCountingDB):
+    """``SlowCountingDB`` that also logs the thread each fetch runs on."""
+
+    def __init__(self, delay: float = 0.05):
+        super().__init__(delay)
+        self.threads = []
+
+    def fetch(self, key, broker=None, *, scale: float = 1.0):
+        self.threads.append(threading.get_ident())
+        return super().fetch(key, broker, scale=scale)
+
+
+def test_unpooled_loads_run_at_once_on_threads_that_stay(monkeypatch):
+    """A baseline (unpooled) daemon's loads are ungated, each running at
+    once beside the others, and they run on threads that stay: a second
+    round of loads takes the first round's idle threads, so no load's
+    thread ends beside the request it served (its end slowed the next
+    forward's host issue on the card)."""
+    runner = daemon_mod._IdleThreads()
+    monkeypatch.setattr(daemon_mod, "_unpooled_loads", runner)
+    db = ThreadLoggingDB(delay=0.1)
+    d, _ = _daemon(db=db, pooled=False)
+    first = [_wreq(fn=f"a{i}", w_mb=1, db=db) for i in range(6)]
+    for h in [d.prepare(r)[r.in_data[0].key] for r in first]:
+        h.wait(10)
+    assert db.max_concurrent == 6 and len(set(db.threads)) == 6
+    deadline = time.monotonic() + 10
+    while runner._idle < 6 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    threads = threading.active_count()
+    second = [_wreq(fn=f"b{i}", w_mb=1, db=db) for i in range(3)]
+    for h in [d.prepare(r)[r.in_data[0].key] for r in second]:
+        h.wait(10)
+    assert set(db.threads[6:]) <= set(db.threads[:6])
+    assert threading.active_count() == threads
+
+
+def test_unpooled_load_that_raises_keeps_its_thread(monkeypatch):
+    """A job that raises on the unpooled loads' threads is reported as a
+    thread's death would be (``threading.excepthook``), and its thread
+    runs the next job."""
+    runner = daemon_mod._IdleThreads()
+    seen, ran = [], []
+    monkeypatch.setattr(threading, "excepthook", lambda args: seen.append(
+        (args.exc_type, args.thread.ident)))
+    runner.submit(lambda: 1 / 0)
+    deadline = time.monotonic() + 10
+    while runner._idle < 1 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    done = threading.Event()
+    runner.submit(lambda: (ran.append(threading.get_ident()), done.set()))
+    assert done.wait(10)
+    assert seen == [(ZeroDivisionError, ran[0])]
 
 
 def test_loader_concurrency_never_exceeds_pool_size():
