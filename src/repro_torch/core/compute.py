@@ -41,6 +41,8 @@ import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from repro_torch.core import telemetry
+
 __all__ = [
     "COMPUTE_MODES", "ComputeConfig", "resolve_compute", "slices_for",
     "batched_span", "batch_hold_s", "ComputePlane", "BatchCollector",
@@ -353,7 +355,8 @@ class ThreadedComputePlane:
         """Execute ``inner`` (the function's real handler) under the shared
         plane: optionally batch with concurrent same-function arrivals,
         acquire the function's slice grant, and stretch the measured wall
-        time to the modeled shared-compute span."""
+        time to the modeled shared-compute span. The batch's collection
+        and the grant's wait are the invocation's ``lock_wait`` span."""
         import time as _time
 
         from repro_torch.core.slowness import HedgedError
@@ -361,17 +364,18 @@ class ThreadedComputePlane:
         est = getattr(fn, "compute_s_hint", 0.0) or 0.0
         k = slices_for(self.cfg, getattr(fn, "sm_fraction", None), est)
         batch = None
-        if self.cfg.max_batch > 1:
-            batch = self._join(fn, request, est)
-        ev = getattr(request, "hedge_cancel", None)
-        if ev is not None and ev.is_set():
-            # cancelled while parked in the collector: exit before the
-            # launch so the engine's HedgedError unwind releases the
-            # member's bytes exactly (no leaked device_used)
-            if batch is not None:
-                self._leave(batch, request)
-            raise HedgedError(f"{fn.name}: superseded by hedged twin")
-        g = self._acquire(batch, k)
+        with telemetry.span("lock_wait"):
+            if self.cfg.max_batch > 1:
+                batch = self._join(fn, request, est)
+            ev = getattr(request, "hedge_cancel", None)
+            if ev is not None and ev.is_set():
+                # cancelled while parked in the collector: exit before the
+                # launch so the engine's HedgedError unwind releases the
+                # member's bytes exactly (no leaked device_used)
+                if batch is not None:
+                    self._leave(batch, request)
+                raise HedgedError(f"{fn.name}: superseded by hedged twin")
+            g = self._acquire(batch, k)
         t0 = _time.monotonic()
         try:
             return inner(shim, request)

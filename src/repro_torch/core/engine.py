@@ -29,7 +29,9 @@ from repro_torch.core.exit_policy import ExitLadder
 from repro_torch.core.request import Request
 from repro_torch.core.shim import TaxonShim
 from repro_torch.core.slowness import HedgedError
-from repro_torch.core.telemetry import InvocationRecord
+from repro_torch.core.telemetry import (
+    InvocationRecord, current_spans, span, span_seconds,
+)
 
 
 @dataclass
@@ -263,7 +265,8 @@ class FunctionEngine:
                         # when the executable is cached; we keep the conservative
                         # paper model and rebuild unless shared)
                     else:
-                        inst.gpu_ctx = self.fn.context_builder()
+                        with span("ctx_build"):
+                            inst.gpu_ctx = self.fn.context_builder()
                 except BaseException:
                     self.daemon.release_context(self.fn.context_bytes)
                     raise
@@ -399,7 +402,8 @@ class FunctionEngine:
                                             deadline_at=deadline_at,
                                             max_retries=request.max_retries)
                 try:
-                    inst.gpu_ctx = self.fn.context_builder()
+                    with span("ctx_build"):
+                        inst.gpu_ctx = self.fn.context_builder()
                 except BaseException:
                     self.daemon.release_context(self.fn.context_bytes)
                     raise
@@ -464,14 +468,17 @@ class FunctionEngine:
     # ------------------------------------------------------------------
     def _run_handler(self, inst: Instance, request: Request, handles, record=None):
         """Run the user handler through the taxon shim; returns
-        (result, data_wait_seconds). ``record`` gets compute/return stages."""
+        (result, data_wait_seconds): the data wait is the sum of this
+        invocation's ``data_wait`` spans taken in the handler. ``record``
+        gets compute/return stages."""
         shim = TaxonShim(self.daemon, self.executor, request, handles)
         shim.gpu_ctx = inst.gpu_ctx
-        w0 = self.executor.wait_time
+        spans = current_spans()
+        first = len(spans) if spans is not None else 0
         t0 = time.monotonic()
         result = self.fn.handler(shim, request)
         wall = time.monotonic() - t0
-        data_wait = self.executor.wait_time - w0
+        data_wait = span_seconds(spans, "data_wait", first)
         if record is not None:
             record.stages["compute"] = max(wall - data_wait, 0.0)
             record.stages["return_result"] = 0.0001

@@ -10,19 +10,16 @@ additionally bounds waits on *live* loads (None = unbounded, the daemon's
 own load deadline is the backstop)."""
 from __future__ import annotations
 
-import threading
 from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.core.daemon import DataLoadError, Handle
+from repro_torch.core.telemetry import span
 
 
 class KernelExecutor:
     def __init__(self, clock=None, wait_timeout: Optional[float] = None):
         self.clock = clock
         self.wait_timeout = wait_timeout
-        self._lock = threading.Lock()
-        self.launched = 0
-        self.wait_time = 0.0  # time spent blocked on data readiness
 
     def _resolve(self, x):
         if isinstance(x, Handle):
@@ -30,13 +27,8 @@ class KernelExecutor:
         return x
 
     def launch(self, fn, args: Tuple, kwargs: Dict) -> Any:
-        import time as _t
-
-        t0 = _t.monotonic()
-        rargs = [self._resolve(a) for a in args]
-        rkwargs = {k: self._resolve(v) for k, v in kwargs.items()}
-        waited = _t.monotonic() - t0
-        with self._lock:
-            self.wait_time += waited
-            self.launched += 1
+        # the wait for the operands is the invocation's ``data_wait`` span
+        with span("data_wait"):
+            rargs = [self._resolve(a) for a in args]
+            rkwargs = {k: self._resolve(v) for k, v in kwargs.items()}
         return fn(*rargs, **rkwargs)

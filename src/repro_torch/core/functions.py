@@ -53,6 +53,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import GPUFunction
 from repro_torch.core.profiles import MB, FunctionProfile
 from repro_torch.core.request import Data, DataType, Request
+from repro_torch.core.telemetry import span
 from repro_torch.data.database import Database, page_locked
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
@@ -115,14 +116,16 @@ class ModelContext:
         self.stream = stream
 
     def __call__(self, p, t):
-        if self.stream is None:
-            return self.fwd(p, t)
-        caller = torch.cuda.current_stream(self.stream.device)
-        self.stream.wait_stream(caller)
-        with torch.cuda.stream(self.stream):
-            out = self.fwd(p, t)
-        caller.wait_stream(self.stream)
-        return out
+        # the host issuing the forward: the invocation's ``forward`` span
+        with span("forward"):
+            if self.stream is None:
+                return self.fwd(p, t)
+            caller = torch.cuda.current_stream(self.stream.device)
+            self.stream.wait_stream(caller)
+            with torch.cuda.stream(self.stream):
+                out = self.fwd(p, t)
+            caller.wait_stream(self.stream)
+            return out
 
 
 _streams: dict = {}

@@ -33,7 +33,7 @@ from repro_torch.core.placement import (
 from repro_torch.core.engine import FunctionEngine, GPUFunction
 from repro_torch.core.executor import KernelExecutor
 from repro_torch.core.request import Request
-from repro_torch.core.telemetry import InvocationRecord, Telemetry
+from repro_torch.core.telemetry import InvocationRecord, Telemetry, span
 from repro_torch.data.database import Database
 
 
@@ -148,7 +148,10 @@ class SageRuntime:
         under a fractional slice grant instead, optionally batched with
         concurrent same-function arrivals. The wrapper reads
         ``self._plane`` per call, so ``set_compute`` applies to functions
-        registered before it; it wraps only the handler's compute."""
+        registered before it; it wraps only the handler's compute. The
+        wait for the lock (or the plane's grant) is the invocation's
+        ``lock_wait`` span; the ``compute`` stage holds it, as the
+        reference's does."""
         inner = fn.handler
         runtime = self
 
@@ -158,8 +161,12 @@ class SageRuntime:
                 return plane.run(wrapped, inner, shim, request)
             lock = runtime._compute_lock
             if lock is not None:
-                with lock:
+                with span("lock_wait"):
+                    lock.acquire()
+                try:
                     return inner(shim, request)
+                finally:
+                    lock.release()
             return inner(shim, request)
 
         import dataclasses
@@ -190,7 +197,9 @@ class SageRuntime:
             redispatches=request.redispatches,
         )
         try:
-            result = eng.invoke(request, rec)
+            # the spans the invocation takes go to its request id's list
+            with self.telemetry.recording(request.uuid):
+                result = eng.invoke(request, rec)
             if self.slow_factor > 1.0:
                 # SlowNode gray failure: stretch the measured COMPUTE leg
                 # (the load legs are already slowed by the fault's link

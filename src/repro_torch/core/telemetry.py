@@ -1,10 +1,76 @@
-"""Per-invocation stage telemetry (Fig 2 / Fig 15 / Table 4 breakdowns)."""
+"""Per-invocation stage telemetry (Fig 2 / Fig 15 / Table 4 breakdowns),
+and the spans of the threaded runtime's invocations.
+
+A span is ``(name, start, end)``, two ``time.monotonic()`` stamps taken
+where the work happens (``with span("data_wait"): ...``). It goes to the
+span list of the invocation that the calling thread runs:
+``SageRuntime.sage_run`` binds that list (``Telemetry.recording``) for the
+invocation's request id, and ``Telemetry.spans_of`` returns it. Outside an
+invocation a span records nothing and costs one ``ContextVar`` read. The
+spans the runtime takes:
+
+* ``lock_wait``: the handler's wait for the node's compute lock (or the
+  shared compute plane's grant); the ``compute`` stage includes it, as the
+  reference's does;
+* ``ctx_build``: the function's ``context_builder()`` call, so the
+  invocation that built the context is the one with this span;
+* ``data_wait``: the kernel executor resolving a launch's operand
+  handles: the ``gpu_data`` stage of a SAGE invocation is their sum;
+* ``forward``: a model function's forward issued by the host
+  (``core.functions.ModelContext``), up to its return.
+
+The discrete-event twin records no spans: they exist on the threaded
+runtime only, as ``InvocationRecord.result`` does."""
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import threading
+import time
 from collections import defaultdict
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+#: the span list of the invocation that the current thread runs (None
+#: outside an invocation)
+_SPANS: contextvars.ContextVar[Optional[list]] = contextvars.ContextVar(
+    "repro_torch_spans", default=None)
+
+Span = Tuple[str, float, float]
+
+
+class span:
+    """``with span(name):`` appends ``(name, start, end)`` to the current
+    invocation's spans (``time.monotonic()`` at entry and exit, whether
+    the body returns or raises); outside an invocation, nothing."""
+
+    __slots__ = ("name", "_out", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "span":
+        self._out = _SPANS.get()
+        if self._out is not None:
+            self._t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._out is not None:
+            self._out.append((self.name, self._t0, time.monotonic()))
+
+
+def current_spans() -> Optional[List[Span]]:
+    """The span list of the invocation that the current thread runs, or
+    None outside an invocation."""
+    return _SPANS.get()
+
+
+def span_seconds(spans: Optional[List[Span]], name: str, first: int = 0) -> float:
+    """Summed length of the spans called ``name`` in ``spans[first:]``."""
+    if not spans:
+        return 0.0
+    return sum(t1 - t0 for n, t0, t1 in spans[first:] if n == name)
 
 # canonical stage order (paper Fig 2)
 STAGES = (
@@ -126,6 +192,26 @@ class Telemetry:
         # stale without the version changing.)
         self._version = 0
         self._sorted_cache: Dict[tuple, tuple] = {}
+        self._spans: Dict[str, List[Span]] = {}
+
+    @contextlib.contextmanager
+    def recording(self, request_id: str) -> Iterator[List[Span]]:
+        """Bind the span list of ``request_id`` to the current thread for
+        the ``with`` block: the spans it takes go there. A request id run
+        again (a re-dispatch to this node) appends to the same list."""
+        with self._lock:
+            spans = self._spans.setdefault(request_id, [])
+        token = _SPANS.set(spans)
+        try:
+            yield spans
+        finally:
+            _SPANS.reset(token)
+
+    def spans_of(self, request_id: str) -> List[Span]:
+        """The spans of ``request_id``'s invocation, in the order they
+        ended (empty for an unknown id, and on the discrete-event twin)."""
+        with self._lock:
+            return list(self._spans.get(request_id, ()))
 
     def add(self, rec: InvocationRecord) -> None:
         with self._lock:

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import mmap
 import threading
+import time
 import weakref
 from typing import Any, Callable, Dict, List
 
@@ -130,6 +131,11 @@ class Database:
         self._sizes: Dict[str, int] = {}
         # the host -> device copies' own stream (CUDA only)
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        # what ``to_device`` moved: the bytes of the host tensors it put on
+        # the device, and the host seconds spent in it (the daemon's loader
+        # threads call it concurrently; updated under the lock)
+        self.h2d_bytes = 0
+        self.h2d_s = 0.0
 
     @property
     def page_locked_bytes(self) -> int:
@@ -171,9 +177,12 @@ class Database:
         in ``non_blocking`` pieces of at most ``_PIECE`` bytes, two queued
         at a time, ordered after the work queued so far on the calling
         stream (which may have used those blocks); the host returns once
-        the last piece is done."""
+        the last piece is done. Adds to ``h2d_bytes`` and ``h2d_s``."""
+        t0 = time.monotonic()
         if self.device.type != "cuda":
-            return map_tensors(obj, lambda t: t.to(self.device))
+            out = map_tensors(obj, lambda t: t.to(self.device))
+            self._count(sum(_nbytes(t) for t in tensors(obj) if t.device.type == "cpu"), t0)
+            return out
         copies = []
 
         def stage(t):
@@ -198,4 +207,10 @@ class Database:
                     prev = done
         if prev is not None:
             prev.synchronize()
+        self._count(sum(_nbytes(src) for src, _ in copies), t0)
         return out
+
+    def _count(self, nbytes: int, t0: float) -> None:
+        with self._lock:
+            self.h2d_bytes += nbytes
+            self.h2d_s += time.monotonic() - t0

@@ -1136,6 +1136,39 @@ def test_database_copy_is_not_queued_on_the_current_stream(cuda):
     assert torch.equal(span["out"][-4:].cpu(), torch.ones(4))
 
 
+@pytest.mark.requires_cuda
+def test_database_counters_read_the_links_copy_rate(cuda):
+    """``Database.h2d_bytes`` over ``h2d_s`` of a 2 GiB page-locked
+    ``to_device`` reads 0.8–1.05 of the rate of one plain ``copy_`` of the
+    same bytes timed with CUDA events (the median of three each)."""
+    import statistics
+
+    from repro_torch.data.database import Database, page_locked
+
+    db = Database(device="cuda")
+    host = page_locked(torch.ones(1 << 29, dtype=torch.float32, device=cuda))
+    nbytes = host.numel() * host.element_size()
+    db.to_device(host)  # dropped: its destination's block is then reused
+    rates = []
+    for _ in range(3):
+        b0, s0 = db.h2d_bytes, db.h2d_s
+        out = db.to_device(host)
+        assert db.h2d_bytes - b0 == nbytes
+        rates.append(nbytes / (db.h2d_s - s0))
+        del out
+    dst = torch.empty_like(host, device=cuda)
+    plain = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        dst.copy_(host, non_blocking=True)
+        end.record()
+        end.synchronize()
+        plain.append(nbytes / (start.elapsed_time(end) / 1e3))
+    ratio = statistics.median(rates) / statistics.median(plain)
+    assert 0.8 <= ratio <= 1.05, (rates, plain)
+
+
 _BUILD_BESIDE = """
 import json, sys, threading, time
 import torch
