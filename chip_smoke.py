@@ -35,7 +35,11 @@ Phases, one JSON line each:
                  d_model 2048, bf16, random weights from a seed), batch
                  4 x 1024 tokens: cold, warm, then a burst of 4 concurrent;
                  the cold request's compute within COLD_MAX_OVER_WARM x the
-                 warm one's (its context carried the shape-only work);
+                 warm one's (its context carried the shape-only work); the
+                 warm request captures the context's CUDA graph and the
+                 burst replays it, its K1 and K3 calls counted from the
+                 kernels in a profiler trace of the burst; every answer
+                 against the direct forward;
 6. mamba_reduced the same as 4 for the reduced mamba2-780m;
 7. mamba_full    the same as 5 for the full-width mamba2-780m (48 layers,
                  d_model 1536, SSD heads 48 x 64, state 128, chunk 128, bf16);
@@ -128,8 +132,8 @@ Phases, one JSON line each:
                  and each hit skips what Table 4 says it skips;
 19. control_plane  the cluster control plane on real memory: (a) a 2-node
                  ClusterRuntime (locality, eviction) serving the full-width
-                 qwen2.5-3b, node A crashed while a request's forward is in
-                 flight, a request evicted to B, A restored, B drained, a
+                 qwen2.5-3b, node A crashed while a request's forward (an
+                 eager one, of another shape) is in flight, a request evicted to B, A restored, B drained, a
                  cold request on A: typed outcomes, logits against the
                  direct forward, >= 90 % of the weights' real bytes freed by
                  the crash and by the drain, and the time the crash took to
@@ -174,7 +178,9 @@ Each served path sets every kernel's launch count to 0 just before it runs
 and reads the counts just after. The GPU context's build runs a warm-up
 forward (core/functions.py): its launches, counted in each kernel's
 count too, are read apart (``ctx_counts``) and every check holds the
-requests' forwards and the context builds to their own numbers. Any
+requests' forwards and the context builds to their own numbers. A forward
+replayed from a context's CUDA graph counts the kernel calls captured
+into the graph. Any
 failed check exits non-zero before the last line. The script never carries on without a card: it exits non-zero
 and prints no result.
 """
@@ -366,8 +372,38 @@ def reset_counts() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
     with F._ctx_lock:
-        F.context_launches.clear()
-        F.context_builds.clear()
+        for counter in (F.context_launches, F.context_builds, F.eager_forwards,
+                        F.graph_captures, F.graph_replays):
+            counter.clear()
+
+
+def graph_counts(fn_name: str) -> tuple:
+    """(eager forwards, captures, replays) of ``fn_name`` since
+    ``reset_counts``."""
+    return F.eager_forwards[fn_name], F.graph_captures[fn_name], F.graph_replays[fn_name]
+
+
+def traced_calls(fn):
+    """Run ``fn`` under torch.profiler; returns its result and the K1 and K3
+    forward calls whose kernels ran on the card meanwhile, by the kernels'
+    names in the trace, a CUDA graph's nodes included: K1's forward kernel,
+    and the kernel that ends each K3 call (fp32 ``ssd_kernel``, bf16
+    ``ssd_chunk_scan_kernel``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    calls = dict.fromkeys(KERNELS, 0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            if any(tag in e.key for tag in K1_FWD_NAMES):
+                calls[fa.NAME] += e.count
+            elif "ssd_kernel" in e.key or "ssd_chunk_scan_kernel" in e.key:
+                calls[ssd.NAME] += e.count
+    return out, calls
 
 
 def counts() -> dict:
@@ -893,7 +929,11 @@ def phase_reduced(phase, arch):
 def phase_full(phase, arch, fn_name):
     """SageRuntime serves the unreduced ``arch`` (published widths and
     depth, bf16, random weights from seed 0), batch 4 x 1024: cold, warm,
-    then a burst of 4 concurrent requests. Returns the launches by kernel."""
+    then a burst of 4 concurrent requests. The cold request runs eagerly,
+    the warm one captures the context's CUDA graph and the burst replays
+    it: the K1 and K3 calls whose kernels a profiler trace of the burst
+    shows are 4 forwards' and match the counters, and every answer equals
+    the direct forward's. Returns the launches by kernel."""
     cfg = ARCHS[arch]
     check(cfg.param_dtype == cfg.compute_dtype == "bfloat16", "full width is bf16")
     base_alloc = torch.cuda.memory_allocated()
@@ -917,11 +957,18 @@ def phase_full(phase, arch, fn_name):
     cold_ctx = ctx_counts()
     cold_launches = minus(counts(), cold_ctx)  # the cold request's forward
     out_keys.append(rt.sage_run(reqs[1]))
-    futs = [rt.submit(r) for r in reqs[2:]]
-    out_keys += [f.result(timeout=600) for f in futs]
-    torch.cuda.synchronize()
+    before_burst = counts()
+
+    def burst():  # submitted inside the trace: the profiler takes a while to start
+        futs = [rt.submit(r) for r in reqs[2:]]
+        return [f.result(timeout=600) for f in futs]
+
+    burst_keys, traced = traced_calls(burst)
+    out_keys += burst_keys
     wall_s = time.monotonic() - t0
     launches = counts()  # -- and ends here
+    burst_launches = minus(launches, before_burst)
+    routes = graph_counts(fn_name)
     ctx, n_builds = ctx_counts(), builds(fn_name)
     peak = torch.cuda.max_memory_allocated()
     recs = rt.telemetry.records
@@ -934,17 +981,21 @@ def phase_full(phase, arch, fn_name):
     stats = dict(rt.daemon.stats)
     served = [rt.db.fetch(k) for k in out_keys]
 
-    # one served request against the direct forward of the same weights and
-    # tokens on the card (these launches are a comparison, not the path)
+    # every served request (eager, captured and replayed) against the
+    # direct forward of the same weights and tokens on the card (these
+    # launches are a comparison, not the path)
     weights = rt.db.to_device(rt.db.fetch(f"{fn_name}/weights"))
-    toks = rt.db.fetch(reqs[0].in_data[1].key).cuda()
-    with torch.inference_mode():
-        direct = forward(cfg, weights, {"tokens": toks})[0][:, -1, :8].float().cpu().numpy()
-    direct_err = float(np.abs(served[0] - direct).max())
+    direct_errs = []
+    for req, got in zip(reqs, served):
+        toks = rt.db.fetch(req.in_data[1].key).cuda()
+        with torch.inference_mode():
+            direct = forward(cfg, weights, {"tokens": toks})[0][:, -1, :8].float().cpu().numpy()
+        direct_errs.append(float(np.abs(got - direct).max()))
+    direct_err = max(direct_errs)
     del weights, toks
     usage = rt.drain()
     rt.shutdown()
-    del rt, fn, futs
+    del rt, fn
     after_raw, after = freed_memory()
     want = forward_launches(cfg)
     emit({"phase": phase, "arch": cfg.name, "params": cfg.param_count(),
@@ -959,7 +1010,9 @@ def phase_full(phase, arch, fn_name):
           "max_memory_allocated": peak, "memory_allocated_before": base_alloc,
           "memory_allocated_after_shutdown": after_raw,
           "memory_allocated_after_cublas_workspaces_cleared": after, "usage_after": usage,
-          "direct_max_abs_err": direct_err,
+          "eager_captured_replayed": routes, "burst_launches": burst_launches,
+          "burst_traced_calls": traced,
+          "direct_max_abs_err": direct_err, "direct_max_abs_err_by_request": direct_errs,
           "served_sample": [float(x) for x in served[0][0]]})
     check(all(r.error is None for r in recs), f"{arch}: a request failed")
     check(len(recs) == 6 and recs[0].warm_stage is None, f"{arch}: cold request")
@@ -971,6 +1024,12 @@ def phase_full(phase, arch, fn_name):
     check(minus(launches, ctx) == {n: 6 * c for n, c in want.items()},
           f"{arch}: {launches} launches for 6 requests and the context's {ctx}, "
           f"want 6 x {want} besides the context's")
+    check(routes == (1, 1, 4), f"{arch}: (eager, captured, replayed) forwards {routes}, "
+          f"want the cold one eager, the warm one captured and the burst replayed")
+    burst_want = {n: 4 * c for n, c in want.items() if n in (fa.NAME, ssd.NAME)}
+    check({n: traced[n] for n in burst_want} == {n: burst_launches[n] for n in burst_want}
+          == burst_want, f"{arch}: the burst's replays ran {traced} K1/K3 calls by the "
+          f"trace and counted {burst_launches}, want {burst_want}")
     over = recs[0].stages["compute"] / warm_compute[0]
     check(arch != "qwen2.5-3b" or over <= COLD_MAX_OVER_WARM,
           f"{arch}: the cold request's compute is {over} x the warm one's: the context "
@@ -978,7 +1037,8 @@ def phase_full(phase, arch, fn_name):
     check(stats["shared_hits"] >= 5, f"{arch}: shared_hits {stats['shared_hits']}")
     check(all(np.isfinite(s).all() and s.shape == (FULL_BATCH, 8) for s in served),
           f"{arch}: served logits not finite")
-    check(direct_err <= 1e-3, f"{arch}: served differs from the direct forward: {direct_err}")
+    check(direct_err <= 1e-3, f"{arch}: served differs from the direct forward: "
+          f"{direct_errs}")
     check(usage["device_used"] == usage["host_used"] == 0, f"{arch}: teardown {usage}")
     check(after <= base_alloc, f"{arch}: device memory not freed: {after} > {base_alloc} bytes")
     return launches
@@ -1534,7 +1594,8 @@ def probe_host(fn) -> list:
     so that each build and each compute (the handler) logs its ``clocks``
     span and the caching allocator's counters' change over it, and each
     compute the start and end of its forward's issue with a mark after
-    every period of layers (``layer_marks``); returns the log of
+    every period of layers (``layer_marks``; none for a forward captured
+    into the context's CUDA graph or replayed from it); returns the log of
     ``{"kind": "build" | "compute", ...}``, which grows as requests run
     (``probe_record`` reads an entry once its work is done)."""
     log, marks = [], layer_marks()
@@ -1548,6 +1609,8 @@ def probe_host(fn) -> list:
         plain = ctx.fwd
 
         def fwd(p, t):
+            if torch.cuda.is_current_stream_capturing():
+                return plain(p, t)  # a CUDA graph's capture: no event would run
             rec = log[-1]
             marks.on = rec["marks"] = [mark()]
             try:
@@ -2034,9 +2097,10 @@ def control_crash_drain():
     """Part (a): a 2-node ClusterRuntime (locality, eviction) serving the
     full-width qwen2.5-3b, one seed-0 host copy of the weights in the
     nodes' shared database and a device copy per node. A cold and a warm
-    request on A; a third whose forward A's crash lands in (K1 has launched
-    for CRASH_AT_LAYER layers); one that eviction routes to B; A restored,
-    B drained, one that lands cold on A. Real and declared bytes at every
+    request on A (the warm one captures the context's CUDA graph); a third,
+    of half the sequence so that its forward runs eagerly, whose forward
+    A's crash lands in (K1 has launched for CRASH_AT_LAYER layers); one
+    that eviction routes to B; A restored, B drained, one that lands cold on A. Real and declared bytes at every
     step, and the time from the crash until the card's allocated bytes
     fell by 90 % of the weights. Returns the launches and the report."""
     cfg = ARCHS["qwen2.5-3b"]
@@ -2063,8 +2127,8 @@ def control_crash_drain():
                       "A": a.memory_usage(), "B": b.memory_usage()})
         return steps[-1]["allocated"]
 
-    def request(step, seed):
-        req = make_request(db, fn, batch=FULL_BATCH, seq=FULL_SEQ, vocab=cfg.vocab_size,
+    def request(step, seed, seq=FULL_SEQ):
+        req = make_request(db, fn, batch=FULL_BATCH, seq=seq, vocab=cfg.vocab_size,
                            seed=seed)
         return req, cluster.submit(req)
 
@@ -2084,8 +2148,9 @@ def control_crash_drain():
         served.append(rec)
         mem(step)
 
-    # the crash, while the third request's forward is in flight
-    req, fut = request("crash", 2)
+    # the crash, while the third request's forward is in flight: of another
+    # shape than the context's, so eager, K1 launched layer by layer
+    req, fut = request("crash", 2, seq=FULL_SEQ // 2)
     k1 = fa.launches - F.context_launches[fa.NAME]  # a context build's are not the forward's
     switch = sys.getswitchinterval()
     sys.setswitchinterval(1e-4)  # let this thread watch the forward's launches closely

@@ -806,6 +806,17 @@ class MemoryDaemon:
         with self._lock:
             self.context_bytes_used += nbytes
 
+    def try_reserve_context(self, nbytes: int) -> bool:
+        """Reserve ``nbytes`` of context memory only if they are free now:
+        no eviction and no wait, and nothing on a crashed node. Returns
+        whether they were reserved (``release_context`` gives them back)."""
+        with self._lock:
+            if self.dead or self.device_used + nbytes > self.capacity:
+                return False
+            self.device_used += nbytes
+            self.context_bytes_used += nbytes
+            return True
+
     def release_context(self, nbytes: int = GPU_CONTEXT_BYTES) -> None:
         self._release_device(nbytes)
         with self._lock:

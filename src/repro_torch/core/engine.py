@@ -55,6 +55,24 @@ class GPUFunction:
         return self.context_bytes + sum(self.read_only.values()) + self.writable_hint
 
 
+def _bind(ctx: Any, daemon: MemoryDaemon) -> None:
+    """Let a context ask ``daemon`` for the device memory it keeps beyond
+    its declared bytes (``ModelContext.bind``: its CUDA graph's pool)."""
+    bind = getattr(ctx, "bind", None)
+    if bind is not None:
+        bind(daemon)
+
+
+def _release(ctx: Any) -> None:
+    """Free what a context holds on the device beyond its compiled forward
+    (``ModelContext.release``: its CUDA graph) as the exit ladder demotes
+    its weights or its instance's context memory is released; the engine
+    may keep the context itself, as SAGE's executable cache."""
+    release = getattr(ctx, "release", None)
+    if release is not None:
+        release()
+
+
 class Instance:
     """One container+context+private-data unit."""
 
@@ -111,6 +129,7 @@ class FunctionEngine:
             for _ in range(policy.pre_created_contexts):
                 self.daemon.reserve_context(fn.context_bytes)
             self._shared_ctx = fn.context_builder()
+            _bind(self._shared_ctx, daemon)
 
     # ------------------------------------------------------------------
     # helpers
@@ -160,6 +179,7 @@ class FunctionEngine:
             slot, inst.slot_bytes = inst.slot_bytes, 0
             handles, inst.private_handles = inst.private_handles, {}
         if ctx is not None:
+            _release(ctx)
             self.daemon.release_context(self.fn.context_bytes)
         if slot:
             self.daemon.release_slot(slot)
@@ -228,7 +248,10 @@ class FunctionEngine:
             inst = Instance(self.fn)
             inst.ladder.ttls = (self.exit_ttl,) * 4  # paper: 30 s per stage
             inst.ladder.on_enter = {
-                2: lambda: self.daemon.demote_to_host(self.fn.name),
+                # the weights leave the card: the graph keyed on their
+                # addresses can never replay again
+                2: lambda: (self.daemon.demote_to_host(self.fn.name),
+                            _release(inst.gpu_ctx)),
                 3: lambda: self._drop_ctx(inst),
                 4: lambda: (self.daemon.drop_host(self.fn.name),
                             setattr(inst, "cpu_ctx_alive", False)),
@@ -239,6 +262,7 @@ class FunctionEngine:
 
     def _drop_ctx(self, inst: Instance) -> None:
         if inst.gpu_ctx is not None:
+            _release(inst.gpu_ctx)
             self.daemon.release_context(self.fn.context_bytes)
             inst.gpu_ctx = None
 
@@ -267,6 +291,7 @@ class FunctionEngine:
                     else:
                         with span("ctx_build"):
                             inst.gpu_ctx = self.fn.context_builder()
+                        _bind(inst.gpu_ctx, self.daemon)
                 except BaseException:
                     self.daemon.release_context(self.fn.context_bytes)
                     raise
@@ -280,6 +305,7 @@ class FunctionEngine:
             with self._lock:
                 ctx, inst.gpu_ctx = inst.gpu_ctx, None
             if ctx is not None:
+                _release(ctx)
                 self.daemon.release_context(self.fn.context_bytes)
             raise NodeLostError(self.fn.name,
                                 self.daemon.dead_reason or "node crashed")
@@ -404,6 +430,7 @@ class FunctionEngine:
                 try:
                     with span("ctx_build"):
                         inst.gpu_ctx = self.fn.context_builder()
+                    _bind(inst.gpu_ctx, self.daemon)
                 except BaseException:
                     self.daemon.release_context(self.fn.context_bytes)
                     raise

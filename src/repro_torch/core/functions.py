@@ -35,11 +35,26 @@ first forward; when both shared the default stream's blocks, the copy
 took some, and a fresh process's first full-width qwen2.5-3b forward
 called cudaMalloc for a new 2.49 GB segment for its logits inside its
 compute stage (on an H100 80GB HBM3 at 700 W, PERF.md §6).
+
+On the card the forward the context serves is also kept as a CUDA graph,
+as the JAX package's executable is launched whole: the host's issue of a
+full-width forward (thousands of launches) takes about the forward's
+device time, so the card waits on it. A context captures its graph on the
+second forward that can replay one (``ModelContext``: plain tensors, the
+tokens at the shape the context was built for, the weights at the
+addresses of that capture's call) and replays it from then on, with the
+same kernels in the same order; every other call runs eagerly. The
+graph's private memory pool is admitted by the node's memory daemon, as
+context memory, before the graph is kept (the call runs eagerly where it
+is not), and counted in ``reserved_bytes``; the graph and its bytes go
+when the engine demotes the weights or releases the context's memory
+(``ModelContext.release``).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import threading
 import time
 from collections import Counter
@@ -55,15 +70,24 @@ from repro_torch.core.profiles import MB, FunctionProfile
 from repro_torch.core.request import Data, DataType, Request
 from repro_torch.core.telemetry import span
 from repro_torch.data.database import Database, page_locked
+from repro_torch.distributed.compat import is_dtensor
+from repro_torch.kernels import capture as _capture
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.models import forward, init_params
+from repro_torch.tree import leaves as tree_leaves
 
 #: kernel launches made by context builds' warm-up forwards in this process,
 #: by kernel name (also counted in each kernel's own ``launches``), and
 #: the context builds, by function name
 context_launches: Counter = Counter()
 context_builds: Counter = Counter()
+#: forwards on the card, by function name: captured into the context's
+#: CUDA graph (and replayed once for that call's answer), replayed from
+#: it, and run eagerly
+graph_captures: Counter = Counter()
+graph_replays: Counter = Counter()
+eager_forwards: Counter = Counter()
 _ctx_lock = threading.Lock()
 
 
@@ -96,6 +120,30 @@ def warmup_launches(cfg: ModelConfig) -> dict:
     return {_fa.NAME: one.num_attn_layers, _ssd.NAME: one.num_mamba_layers}
 
 
+#: the kernels a forward launches, by name
+_KERNELS = {_fa.NAME: _fa, _ssd.NAME: _ssd}
+
+
+def _pool_bytes(pool) -> int:
+    """The bytes of the segments the caching allocator holds for ``pool``."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+@dataclasses.dataclass
+class _Graph:
+    """A captured forward: the key of the call it was captured from, the
+    graph, its static tokens and logits, the kernel calls captured into it
+    by name, the bytes of its pool and the budget that admitted them."""
+    key: tuple
+    graph: "torch.cuda.CUDAGraph"
+    tokens: torch.Tensor
+    logits: torch.Tensor
+    launches: dict
+    pool_bytes: int
+    budget: object = None
+
+
 class ModelContext:
     """A built GPU context: the forward callable (``ctx(p, t)``) and what
     its build did (``build_s``, the warm-up's ``launches``, the bytes the
@@ -105,15 +153,45 @@ class ModelContext:
     and the caller's stream waits for it, so that its output and inputs
     are the caller's to use and free as if it had run there: a block one
     stream frees is reused by that stream's later work only, which waits
-    for the other's (every caller uses the default stream)."""
+    for the other's (every caller uses the default stream).
+
+    On the card the forward is replayed from a CUDA graph where the call
+    allows it: tokens of the ``shape`` the context was built for, and
+    plain tensors (no ``DTensor``). Such a call is keyed by the tokens'
+    dtype and each weight leaf's address, shape and dtype. The first call
+    with a key runs eagerly; the next with the same key captures the
+    graph (on a stream of its own, ``capture_stream``), and every later
+    one replays it: the tokens are copied into the graph's static input,
+    the graph is replayed on ``stream`` and its logits are copied out, so
+    a later replay never overwrites what a caller holds. The graph is kept
+    only if the ``budget`` the engine binds (``bind``: the node's memory
+    daemon) grants its pool's bytes at once; where it does not, the key's
+    calls run eagerly until the context is released. A call with another
+    key drops the graph (weights reloaded to other addresses) and runs
+    eagerly. The context's lock keeps two replays from overlapping. The
+    kernel calls captured into the graph (``kernels.capture.tally``) are
+    added to the kernels' ``launches`` after each replay;
+    ``graph_captures``, ``graph_replays`` and ``eager_forwards`` count the
+    forwards by ``name``."""
 
     def __init__(self, fwd, build_s: float, launches: dict, reserved_bytes: int,
-                 stream=None):
+                 stream=None, *, name: str = "", shape=None):
         self.fwd = fwd
         self.build_s = build_s
         self.launches = launches
         self.reserved_bytes = reserved_bytes
         self.stream = stream
+        self.name = name
+        self.shape = shape
+        self.budget = None
+        # held over the graph's state and each replay, and never while
+        # calling the budget: a daemon may call ``release`` under its lock
+        self._lock = threading.Lock()
+        self._graph: Optional[_Graph] = None
+        self._seen = None  # the key of the last call that ran eagerly
+        self._refused = None  # the key whose graph the budget did not grant
+        self._capturing = False
+        self._released = 0  # ``release`` calls, so a capture sees one made meanwhile
 
     def __call__(self, p, t):
         # the host issuing the forward: the invocation's ``forward`` span
@@ -123,9 +201,150 @@ class ModelContext:
             caller = torch.cuda.current_stream(self.stream.device)
             self.stream.wait_stream(caller)
             with torch.cuda.stream(self.stream):
-                out = self.fwd(p, t)
+                key = self._key(p, t)
+                out = self._replayed(key, p, t) if key is not None else None
+                if out is None:
+                    with _ctx_lock:
+                        eager_forwards[self.name] += 1
+                    out = self.fwd(p, t)
             caller.wait_stream(self.stream)
             return out
+
+    def bind(self, budget) -> None:
+        """Have ``budget`` (with ``try_reserve_context(nbytes) -> bool`` and
+        ``release_context(nbytes)``, as ``MemoryDaemon``) admit the pools of
+        the graphs captured from now on; a context bound to none keeps its
+        graph unasked."""
+        self.budget = budget
+
+    def release(self) -> None:
+        """Drop the graph and give its pool's bytes back, as the engine
+        demotes the weights (the exit ladder's stage 2) or releases the
+        context's memory (stage 3, a node's teardown); the engine may keep
+        the context itself, whose next calls capture again."""
+        with self._lock:
+            g = self._pop()
+            self._seen = self._refused = None
+            self._released += 1
+        _give_back(g)
+
+    def _pop(self) -> Optional[_Graph]:
+        """Take the graph out, with the context's lock held; the caller
+        gives its bytes back (``_give_back``) once the lock is let go."""
+        g, self._graph = self._graph, None
+        if g is not None:
+            self.reserved_bytes -= g.pool_bytes
+        return g
+
+    def _key(self, p, t):
+        """The call's graph key, or None where it cannot replay a graph."""
+        if not t.is_cuda or is_dtensor(t) or tuple(t.shape) != self.shape:
+            return None
+        leaves = tree_leaves(p)
+        if any(is_dtensor(x) for x in leaves):
+            return None
+        return t.dtype, tuple((x.data_ptr(), tuple(x.shape), x.dtype) for x in leaves)
+
+    def _replayed(self, key, p, t):
+        """The logits from the graph of ``key``, captured first if this key's
+        last call ran eagerly; None where this call runs eagerly (as do the
+        calls made while another captures)."""
+        stale = None
+        try:
+            with self._lock:
+                g = self._graph
+                if g is not None and g.key != key:  # the weights moved
+                    stale, g = self._pop(), None
+                if g is not None:
+                    return self._replay(g, t, graph_replays)
+                if self._seen != key or self._refused == key or self._capturing:
+                    self._seen = key
+                    return None
+                self._capturing, released = True, self._released
+        finally:
+            _give_back(stale)
+        g = self._kept(key, p, t, released)
+        if g is None:
+            return None
+        with self._lock:
+            return self._replay(g, t, graph_captures)
+
+    def _replay(self, g: _Graph, t, counter: Counter):
+        """Replay ``g`` on ``t`` and copy its logits out, with the context's
+        lock held; the kernel calls captured into it count as launched."""
+        g.tokens.copy_(t)
+        g.graph.replay()
+        for name, n in g.launches.items():
+            _KERNELS[name].add_launches(n)
+        out = g.logits.clone()
+        with _ctx_lock:
+            counter[self.name] += 1
+        return out
+
+    def _kept(self, key, p, t, released: int) -> Optional[_Graph]:
+        """Capture the graph of ``key`` and keep it if the budget grants its
+        pool's bytes at once; None where it is not kept: the forward cannot
+        be captured (the context stays eager), the budget refuses (the key
+        stays eager until ``release``) or the context was released
+        meanwhile. Called without the context's lock."""
+        try:
+            g = self._capture(key, p, t)
+        except RuntimeError:  # the forward cannot be captured: never again
+            g = None
+        budget = self.budget
+        granted = g is not None and (budget is None or budget.try_reserve_context(g.pool_bytes))
+        with self._lock:
+            self._capturing = False
+            if g is None:
+                self.shape = None
+                return None
+            if not granted:
+                self._refused = key  # the graph and its pool go with ``g``
+                return None
+            if self._released == released:
+                g.budget = budget
+                self._graph = g
+                self.reserved_bytes += g.pool_bytes
+                return g
+        g.budget = budget
+        _give_back(g)
+        return None
+
+    def _capture(self, key, p, t) -> _Graph:
+        """Capture the forward at ``t``'s shape on the device's capture
+        stream, which no other work uses, in thread-local mode (the data
+        plane's threads copy beside it). Its answer is not computed: the
+        caller replays it. The collector is off meanwhile: an object whose
+        finaliser calls CUDA (another context's graph) collected on this
+        thread would end the capture."""
+        tokens = torch.empty_like(t)
+        graph = torch.cuda.CUDAGraph()
+        cap = capture_stream(self.stream.device)
+        with _capture_lock, torch.cuda.stream(cap):
+            # this thread's cuBLAS handle and its workspace on this stream,
+            # made outside the capture (and the graph's pool)
+            torch.cuda.current_blas_handle()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    with _capture.tally() as launched:
+                        logits = self.fwd(p, tokens)
+                finally:
+                    graph.capture_end()
+            finally:
+                if collecting:
+                    gc.enable()
+        return _Graph(key, graph, tokens, logits, dict(launched), _pool_bytes(graph.pool()))
+
+
+def _give_back(g: Optional[_Graph]) -> None:
+    """Give a dropped graph's pool bytes back to the budget that granted
+    them. The graph itself goes with the last reference to it; a replay
+    still running on the card finishes first."""
+    if g is not None and g.budget is not None:
+        g.budget.release_context(g.pool_bytes)
 
 
 _streams: dict = {}
@@ -138,6 +357,20 @@ def compute_stream(device: torch.device) -> "torch.cuda.Stream":
         if device not in _streams:
             _streams[device] = torch.cuda.Stream(device)
         return _streams[device]
+
+
+_capture_streams: dict = {}
+_capture_lock = threading.Lock()  # one capture at a time on a capture stream
+
+
+def capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The stream that contexts on ``device`` capture their graphs on, made
+    at first use from the high-priority streams, which nothing else takes
+    (the compute stream and the database's come from the others)."""
+    with _ctx_lock:
+        if device not in _capture_streams:
+            _capture_streams[device] = torch.cuda.Stream(device, priority=-1)
+        return _capture_streams[device]
 
 
 def warm_up(cfg: ModelConfig, batch: int, seq: int, device: torch.device) -> dict:
@@ -234,7 +467,8 @@ def _model_function(
             with torch.inference_mode():
                 return forward(cfg, p, {"tokens": t})[0]
 
-        return ModelContext(fwd, time.monotonic() - t0, launched, reserved, stream)
+        return ModelContext(fwd, time.monotonic() - t0, launched, reserved, stream,
+                            name=fn_name, shape=(batch, seq))
 
     def handler(shim, request: Request):
         w = shim.sage_load_to_gpu(weights_key)

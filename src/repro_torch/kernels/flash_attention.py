@@ -17,7 +17,10 @@ contiguous fp32 or bf16 CUDA tensors with Dh in {16, 32, 64, 128} that
 start on a 16-byte boundary, and raises on anything else; it never falls
 back to the plain version. Outputs
 are allocated here; the kernel runs on the current stream and nothing
-synchronises. ``launches`` counts kernel launches (and nothing else).
+synchronises. ``launches`` counts kernel launches (and nothing else): a
+call inside a CUDA graph's capture launches nothing and goes to
+``capture.tally`` instead, and whoever replays the graph adds the
+captured calls (``add_launches``).
 
 Gradients: when grad mode is on and q, k or v requires grad, the call goes
 through ``FlashAttention``, a ``torch.autograd.Function``: its forward
@@ -35,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, capture
 
 NAME = "flash_attention"
 HEAD_DIMS = (16, 32, 64, 128)
@@ -64,6 +67,14 @@ def _kernel():
 def load() -> None:
     """Build and load the kernel library without launching anything."""
     _kernel()
+
+
+def add_launches(n: int) -> None:
+    """Count ``n`` launches of calls captured into a CUDA graph, as the
+    graph is replayed."""
+    global launches
+    with _count_lock:
+        launches += n
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -113,8 +124,11 @@ def _forward(q, k, v, causal: bool, scale: float, with_lse: bool):
                  int(bool(causal)), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
-    with _count_lock:  # the runtime's executor threads may launch concurrently
-        launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        capture.captured(NAME)
+    else:
+        with _count_lock:  # the runtime's executor threads may launch concurrently
+            launches += 1
     return out, lse
 
 

@@ -33,7 +33,10 @@ ValueError on anything else and never falls back to the plain version or
 to the other route. Returns (y (B, S, H, P) in x's dtype, final_state
 (B, H, P, N) fp32), both allocated here; the kernels run on the current
 stream and nothing synchronises. ``launches`` counts one per call of
-``ssd_scan`` that launched its kernels (and nothing else).
+``ssd_scan`` that launched its kernels (and nothing else): a call inside a
+CUDA graph's capture launches nothing and goes to ``capture.tally``
+instead, and whoever replays the graph adds the captured calls
+(``add_launches``).
 
 Under grad mode, an input that requires grad sends the call through
 ``SSDScan``, an autograd Function whose backward is the hand-written
@@ -51,7 +54,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, capture
 
 NAME = "ssd_scan"
 DTYPES = (torch.float32, torch.bfloat16)
@@ -93,6 +96,14 @@ def _kernel():
 def load() -> None:
     """Build and load the kernel library without launching anything."""
     _kernel()
+
+
+def add_launches(n: int) -> None:
+    """Count ``n`` calls captured into a CUDA graph, as the graph is
+    replayed."""
+    global launches
+    with _count_lock:
+        launches += n
 
 
 def _row_stride(t: torch.Tensor) -> Optional[int]:
@@ -208,8 +219,11 @@ def _forward(x, dt, A, Bm, Cm, initial_state, chunk: int, strides):
                                          fs.data_ptr(), *dims, *strides, stream)
         if err != 0:
             raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
-    with _count_lock:  # the runtime's executor threads may launch concurrently
-        launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        capture.captured(NAME)
+    else:
+        with _count_lock:  # the runtime's executor threads may launch concurrently
+            launches += 1
     return y, fs
 
 

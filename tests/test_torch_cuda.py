@@ -1255,3 +1255,246 @@ def test_first_forward_after_the_weights_copy_allocates_no_segment(cuda):
     with torch.inference_mode():
         want = forward(cfg, weights, {"tokens": tokens})[0][:, -1]
     assert torch.equal(got, want)
+
+
+def _graph_counts(name):
+    from repro_torch.core import functions
+
+    return (functions.eager_forwards[name], functions.graph_captures[name],
+            functions.graph_replays[name])
+
+
+def _kernel_launches():
+    from repro_torch.core import functions
+
+    return {m.NAME: m.launches - functions.context_launches[m.NAME] for m in (fa, ssd)}
+
+
+def _forward_launches(cfg):
+    """A forward's K1 and K3 calls: one a layer of each mixer."""
+    return {fa.NAME: cfg.num_attn_layers, ssd.NAME: cfg.num_mamba_layers}
+
+
+def _traced_calls(fn):
+    """Run ``fn`` under torch.profiler; the K1 and K3 calls whose kernels
+    ran on the card, by the kernels' names in the trace (a CUDA graph's
+    nodes included): K1's forward kernel, and the kernel that ends each K3
+    call (fp32 ``ssd_kernel``, bf16 ``ssd_chunk_scan_kernel``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    calls = {fa.NAME: 0, ssd.NAME: 0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            if "flash_fwd" in e.key:
+                calls[fa.NAME] += e.count
+            elif "ssd_kernel" in e.key or "ssd_chunk_scan_kernel" in e.key:
+                calls[ssd.NAME] += e.count
+    return out, calls
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-780m"])
+def test_served_forward_replays_the_contexts_cuda_graph(cuda, arch):
+    """The reduced olmoe-1b-7b (K1 and the MoE) and mamba2-780m (K3) served
+    by ``SageRuntime``: the cold call runs eagerly, the second captures the
+    context's CUDA graph and the later ones replay it. Every answer equals
+    the eager forward's on the same weights and tokens bit for bit, and each
+    call adds one forward's launches to the kernels' counters (besides the
+    context build's). The graph's pool is reserved through the node's
+    memory daemon as context memory, and the node's teardown gives it back
+    and takes it out of the context's ``reserved_bytes``, as the engine
+    keeps the context itself."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import SageRuntime, functions
+    from repro_torch.core.functions import _model_function, make_request
+    from repro_torch.models import forward
+
+    cfg = ARCHS[arch].reduced()
+    name = f"served-graph-{arch}"
+    rt = SageRuntime("sage", time_scale=0.0, exit_ttl=60.0, device="cuda")
+    rt.sage_init()
+    fn = _model_function(rt.db, name, cfg, batch=2, seq=16, seed=0)
+    rt.register_function(fn)
+    reqs = [make_request(rt.db, fn, batch=2, seq=16, vocab=cfg.vocab_size, seed=s)
+            for s in range(5)]
+    counts, launched, out_keys = [], [], []
+    for req in reqs:
+        before = _kernel_launches()
+        out_keys.append(rt.sage_run(req))
+        after = _kernel_launches()
+        launched.append({k: after[k] - before[k] for k in after})
+        counts.append(_graph_counts(name))
+        if len(counts) == 1:
+            ctx = rt.engines[name]._shared_ctx
+            built = ctx.reserved_bytes
+    assert counts == [(1, 0, 0), (1, 1, 0), (1, 1, 1), (1, 1, 2), (1, 1, 3)]
+    assert launched == [_forward_launches(cfg)] * 5
+    pool = ctx.reserved_bytes - built
+    assert pool > 0 and rt.daemon.context_bytes_used == fn.context_bytes + pool
+    db = rt.db
+    weights = db.to_device(db.fetch(f"{name}/weights"))
+    with torch.inference_mode():
+        for req, key in zip(reqs, out_keys):
+            toks = db.fetch(req.in_data[1].key).to(cuda)
+            direct = forward(cfg, weights, {"tokens": toks})[0][:, -1, :8].float().cpu()
+            np.testing.assert_array_equal(db.fetch(key), direct.numpy())
+    usage = rt.drain()
+    rt.shutdown()
+    assert usage["device_used"] == 0 and ctx.reserved_bytes == built
+
+
+@pytest.mark.requires_cuda
+def test_served_forward_stays_eager_where_the_daemon_cannot_grant_the_graphs_pool(cuda):
+    """The reduced olmoe-1b-7b served by ``SageRuntime`` on a node whose
+    memory daemon has no room beyond the weights, the context and a
+    request's tokens: the second call captures the graph, the daemon does
+    not grant its pool, so it and every later call run eagerly, capturing
+    no more, with the answers of the eager forward; nothing is left
+    reserved for a graph."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import SageRuntime
+    from repro_torch.core.functions import _model_function, make_request
+    from repro_torch.core.profiles import MB
+    from repro_torch.models import forward
+
+    cfg = ARCHS["olmoe-1b-7b"].reduced()
+    name = "graph-refused"
+    rt = SageRuntime("sage", time_scale=0.0, exit_ttl=60.0, device="cuda")
+    rt.sage_init()
+    fn = _model_function(rt.db, name, cfg, batch=2, seq=16, seed=0)
+    rt.register_function(fn)
+    reqs = [make_request(rt.db, fn, batch=2, seq=16, vocab=cfg.vocab_size, seed=s)
+            for s in range(4)]
+    out_keys = [rt.sage_run(reqs[0])]
+    # a request's 4 MB of tokens and 1 MB more: a graph's pool takes at
+    # least one 2 MB segment of the caching allocator
+    rt.daemon.capacity = rt.daemon.device_used + 5 * MB
+    out_keys += [rt.sage_run(r) for r in reqs[1:]]
+    assert _graph_counts(name) == (4, 0, 0)
+    assert rt.daemon.context_bytes_used == fn.context_bytes
+    assert rt.engines[name]._shared_ctx._graph is None
+    weights = rt.db.to_device(rt.db.fetch(f"{name}/weights"))
+    with torch.inference_mode():
+        for req, key in zip(reqs, out_keys):
+            toks = rt.db.fetch(req.in_data[1].key).to(cuda)
+            direct = forward(cfg, weights, {"tokens": toks})[0][:, -1, :8].float().cpu()
+            np.testing.assert_array_equal(rt.db.fetch(key), direct.numpy())
+    usage = rt.drain()
+    rt.shutdown()
+    assert usage["device_used"] == 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-780m"])
+def test_context_graph_follows_the_weights_and_the_tokens_shape(cuda, arch):
+    """A built context called directly. Calls that alternate between two
+    weight trees run eagerly; the second call in a row with one tree
+    captures, and later ones replay, each answer bit-equal to the eager
+    forward's. The replay reads new values written at the captured
+    addresses; tokens of another shape run eagerly and keep the graph;
+    weights at other addresses run eagerly (never the old graph), drop the
+    graph and its pool from ``reserved_bytes``, and are captured on the
+    next call. A replay's host time is under a tenth of the eager issue's
+    (medians of six), and the K1 and K3 calls a replay adds to the
+    kernels' counters are the calls whose kernels the profiler's trace
+    shows running on the card in that replay. The reduced widths, eight layers deep, so that the
+    issue is long enough to time against a replay's fixed cost."""
+    import dataclasses
+    import statistics
+    import time
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.functions import _model_function
+    from repro_torch.data.database import Database
+    from repro_torch.models import forward, init_params
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(ARCHS[arch].reduced(), num_layers=8)
+    name = f"direct-graph-{arch}"
+    db = Database(device="cuda")
+    fn = _model_function(db, name, cfg, batch=2, seq=16, seed=0)
+    ctx = fn.context_builder()
+    built = ctx.reserved_bytes
+    wa = db.to_device(db.fetch(f"{name}/weights"))
+    wb = init_params(cfg, torch.Generator(device=cuda).manual_seed(7), cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), dtype=torch.int32, device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+
+    def eager(w, t):
+        with torch.inference_mode():
+            return forward(cfg, w, {"tokens": t})[0]
+
+    def timed(w, t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ctx(w, t)
+        return out, time.perf_counter() - t0
+
+    host = {"eager": [], "replay": []}
+    for w in (wa, wb) * 3:
+        out, s = timed(w, toks)
+        host["eager"].append(s)
+        assert torch.equal(out, eager(w, toks))
+    assert _graph_counts(name) == (6, 0, 0) and ctx.reserved_bytes == built
+    out = ctx(wb, toks)  # the second call in a row with wb: captures
+    assert torch.equal(out, eager(wb, toks))
+    assert _graph_counts(name) == (6, 1, 0) and ctx.reserved_bytes > built
+    for _ in range(6):
+        before = _kernel_launches()
+        out, s = timed(wb, toks)
+        after = _kernel_launches()
+        host["replay"].append(s)
+        assert torch.equal(out, eager(wb, toks))
+        assert {k: after[k] - before[k] for k in after} == _forward_launches(cfg)
+    assert _graph_counts(name) == (6, 1, 6)
+    before = _kernel_launches()
+    _, traced = _traced_calls(lambda: ctx(wb, toks))
+    after = _kernel_launches()
+    assert traced == {k: after[k] - before[k] for k in after} == _forward_launches(cfg)
+    assert _graph_counts(name) == (6, 1, 7)
+    held = out.clone()
+    for leaf in leaves(wb):
+        leaf.mul_(0.5)
+    out = ctx(wb, toks)
+    assert _graph_counts(name) == (6, 1, 8)
+    assert torch.equal(out, eager(wb, toks)) and not torch.equal(out, held)
+    short = toks[:, :8].contiguous()
+    assert torch.equal(ctx(wb, short), eager(wb, short))
+    assert _graph_counts(name) == (7, 1, 8)
+    assert torch.equal(ctx(wb, toks), eager(wb, toks))  # the graph was kept
+    assert _graph_counts(name) == (7, 1, 9)
+    assert torch.equal(ctx(wa, toks), eager(wa, toks))
+    assert _graph_counts(name) == (8, 1, 9) and ctx.reserved_bytes == built
+    assert torch.equal(ctx(wa, toks), eager(wa, toks))
+    assert _graph_counts(name) == (8, 2, 9)
+    ctx.release()  # as the engine releases the context's memory
+    assert ctx.reserved_bytes == built
+    assert torch.equal(ctx(wa, toks), eager(wa, toks))
+    assert _graph_counts(name) == (9, 2, 9)
+    assert statistics.median(host["replay"]) < 0.1 * statistics.median(host["eager"]), host
+
+
+@pytest.mark.requires_cuda
+def test_context_whose_forward_cannot_be_captured_stays_eager(cuda):
+    """A forward that makes the host wait for the card (``.item()``) cannot
+    be captured: the call that tries answers eagerly, the context never
+    tries again, and the collector, off during the capture, is back on."""
+    import gc
+
+    from repro_torch.core.functions import ModelContext, compute_stream
+
+    def fwd(p, t):
+        return p["w"] * t.float() * float(p["w"].sum())
+
+    name = "uncapturable"
+    ctx = ModelContext(fwd, 0.0, {}, 0, compute_stream(cuda), name=name, shape=(2, 4))
+    p = {"w": torch.full((2, 4), 0.5, device=cuda)}
+    t = torch.arange(8, dtype=torch.int32, device=cuda).reshape(2, 4)
+    for _ in range(4):
+        assert torch.equal(ctx(p, t), fwd(p, t))
+    assert _graph_counts(name) == (4, 0, 0) and ctx.shape is None and gc.isenabled()

@@ -378,6 +378,29 @@ def test_load_blocked_on_oom_admitted_after_release():
     assert d.device_used == 0 and d.host_used == 0
 
 
+def test_try_reserve_context_neither_evicts_nor_waits():
+    """The non-blocking context reservation (a CUDA graph's pool): granted
+    while the bytes are free, refused beyond them without evicting an idle
+    entry, and refused on a crashed node; ``release_context`` gives the
+    bytes back."""
+    d, db = _daemon(cap_mb=10)
+    req = _req(fn="a", ro_mb=6, w_mb=1, db=db)
+    handles = d.prepare(req)
+    for h in handles.values():
+        h.wait(5)
+    d.release(req, handles)  # the weights stay on the device, idle
+    d.set_evictable_provider(lambda: d.evictable_entries("a"))
+    assert d.device_used == 6 * MB
+    assert d.try_reserve_context(3 * MB)
+    assert not d.try_reserve_context(2 * MB)  # only by evicting the weights
+    assert d.device_used == 9 * MB and d.context_bytes_used == 3 * MB
+    assert d.stats["evictions"] == 0
+    d.release_context(3 * MB)
+    assert d.device_used == 6 * MB and d.context_bytes_used == 0
+    d.crash()
+    assert not d.try_reserve_context(1) and d.context_bytes_used == 0
+
+
 def test_release_while_loading_cancels_without_leak():
     db = SlowCountingDB(delay=0.2)
     d, _ = _daemon(db=db)

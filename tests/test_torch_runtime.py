@@ -14,7 +14,7 @@ from repro.core import SageRuntime as RefRuntime  # noqa: E402
 from repro.core.functions import make_model_function as ref_make_fn  # noqa: E402
 from repro.core.functions import make_request as ref_make_request  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
-from repro_torch.core import SageRuntime  # noqa: E402
+from repro_torch.core import SageRuntime, functions  # noqa: E402
 from repro_torch.core.functions import make_model_function, make_request  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models import forward  # noqa: E402
@@ -64,6 +64,11 @@ def _cold_warm_warm(rt, make_fn, make_req, arch, weights=None):
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-780m"])
 def test_cold_warm_warm_matches_reference_runtime(arch):
+    """Besides the lifecycle and outputs: on the CPU the context never
+    captures a CUDA graph, so its forwards are counted nowhere."""
+    graph_counts = (functions.graph_captures, functions.graph_replays,
+                    functions.eager_forwards)
+    before = [dict(c) for c in graph_counts]
     ref_rt = RefRuntime("sage", time_scale=0.02, exit_ttl=5.0)
     ref_rt.sage_init()
     want = _cold_warm_warm(ref_rt, ref_make_fn, ref_make_request, arch)
@@ -71,6 +76,7 @@ def test_cold_warm_warm_matches_reference_runtime(arch):
     weights = params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_weights), "cpu")
     got = _cold_warm_warm(_runtime(exit_ttl=5.0), make_model_function, make_request, arch,
                           weights=weights)
+    assert [dict(c) for c in graph_counts] == before
     assert got["warm"] == want["warm"] == [None, 1, 1]
     assert got["stage_keys"] == want["stage_keys"]
     assert got["stats"] == want["stats"]
@@ -123,6 +129,119 @@ def test_drain_waits_for_inflight_then_retires():
     assert rt.retired and rt.is_idle()
     assert [r.error for r in rt.telemetry.records] == [None] * 3
     assert usage == {"device_used": 0, "context_bytes": 0, "host_used": 0}
+
+
+def test_drain_releases_the_context(monkeypatch):
+    """The node's teardown lets the function's context free what it holds
+    on the device beyond the forward (on the card, its CUDA graph), once,
+    though the engine keeps the context."""
+    released = []
+    monkeypatch.setattr(functions.ModelContext, "release", lambda ctx: released.append(ctx))
+    rt = _runtime()
+    fn = make_model_function(rt.db, "f", arch="qwen2.5-3b")
+    rt.register_function(fn)
+    rt.sage_run(make_request(rt.db, fn, seed=0))
+    assert released == [] and rt.engines["f"]._shared_ctx.budget is rt.daemon
+    rt.drain(timeout=120.0)
+    rt.shutdown()
+    assert released == [rt.engines["f"]._shared_ctx]
+
+
+def test_exit_ladder_releases_the_contexts_graph_at_stages_2_and_3(monkeypatch):
+    """The ladder lets the context drop its CUDA graph as the weights leave
+    the card (stage 2: the graph is keyed on their addresses) and again as
+    the context's memory goes (stage 3)."""
+    released = []
+    monkeypatch.setattr(functions.ModelContext, "release", lambda ctx: released.append(ctx))
+    rt = _runtime(exit_ttl=10.0)
+    fn = make_model_function(rt.db, "f", arch="qwen2.5-3b")
+    rt.register_function(fn)
+    rt.sage_run(make_request(rt.db, fn, seed=0))
+    eng = rt.engines["f"]
+    t0, ctx = eng.instances[0].ladder.completion_t, eng._shared_ctx
+    seen = []
+    for dt in (15.0, 25.0):  # the middle of stages 2 and 3
+        eng.clock = FakeClock(t0 + dt)
+        eng._advance_ladders()
+        seen.append(list(released))
+    rt.shutdown()
+    assert seen == [[ctx], [ctx, ctx]]
+
+
+class _StubGraph:
+    """A captured forward's stand-in on the CPU: a replay doubles the
+    static tokens into the static logits."""
+
+    def __init__(self, tokens, logits):
+        self.tokens, self.logits = tokens, logits
+
+    def replay(self):
+        self.logits.copy_(self.tokens * 2)
+
+
+class _Budget:
+    """A memory daemon's context admission over ``free`` bytes."""
+
+    def __init__(self, free):
+        self.free = free
+
+    def try_reserve_context(self, nbytes):
+        granted = nbytes <= self.free
+        self.free -= nbytes if granted else 0
+        return granted
+
+    def release_context(self, nbytes):
+        self.free += nbytes
+
+
+def test_context_keeps_a_graph_only_where_its_budget_grants_the_pool(monkeypatch):
+    """``ModelContext``'s graph bookkeeping, with the capture stubbed (the
+    CPU cannot capture): the first call of a key is eager and the second
+    captures, if the budget grants the pool at once; a refused key stays
+    eager without capturing again until ``release``; another key gives the
+    pool back; a release made during a capture leaves the call eager and
+    the bytes returned; each replay counts the captured K1 calls."""
+    pool, name = 100, "stubbed-graph"
+    captures = []
+
+    def capture(ctx, key, p, t):
+        captures.append(key)
+        tokens, logits = torch.empty_like(t), torch.empty_like(t)
+        g = functions._Graph(key, _StubGraph(tokens, logits), tokens, logits, {fa.NAME: 3},
+                             pool)
+        if key == "released meanwhile":
+            ctx.release()
+        return g
+
+    monkeypatch.setattr(functions.ModelContext, "_capture", capture)
+    ctx = functions.ModelContext(None, 0.0, {}, 7, name=name)
+    budget = _Budget(150)
+    ctx.bind(budget)
+    t = torch.arange(4.0)
+    counts = lambda: (functions.graph_captures[name], functions.graph_replays[name])  # noqa: E731
+    k1 = fa.launches
+
+    def call(key):
+        out = ctx._replayed(key, None, t)
+        assert out is None or torch.equal(out, t * 2)
+        return out is not None
+
+    assert [call("a") for _ in range(3)] == [False, True, True]
+    assert counts() == (1, 1) and fa.launches - k1 == 6
+    assert budget.free == 50 and ctx.reserved_bytes == 7 + pool
+    assert not call("b")  # the weights moved: the pool goes back
+    assert budget.free == 150 and ctx.reserved_bytes == 7
+    budget.free = 50
+    assert [call("b") for _ in range(3)] == [False] * 3
+    assert captures == ["a", "b"] and budget.free == 50 and ctx.reserved_bytes == 7
+    ctx.release()
+    budget.free = 150
+    assert [call("b") for _ in range(3)] == [False, True, True]
+    assert counts() == (2, 2) and captures == ["a", "b", "b"]
+    ctx.release()
+    assert budget.free == 150 and ctx.reserved_bytes == 7
+    assert [call("released meanwhile") for _ in range(3)] == [False, False, False]
+    assert budget.free == 150 and ctx.reserved_bytes == 7 and counts() == (2, 2)
 
 
 def test_fixedgsl_never_shares():
