@@ -11,6 +11,8 @@ Everything takes a configuration's ``model`` dict; nothing here imports
 the program."""
 from __future__ import annotations
 
+import math
+
 PEAK_BF16 = 989e12
 HBM_BW = 3.35e12
 BF16 = 2
@@ -57,27 +59,86 @@ def ssd_shape(m: dict, batch: int, seq: int) -> tuple:
             m["ssm_chunk"])
 
 
+def layer_kinds(m: dict) -> list:
+    """Every layer's (mixer, FFN): mixer ``"mamba"`` or ``"attn"``, FFN
+    ``"none"``, ``"dense"`` or ``"moe"``. The period arithmetic of the
+    port's ``ModelConfig.period_len`` and ``period_spec`` as they stood
+    when this was written: an SSM stack is Mamba2 mixers with no FFN; with
+    ``attn_every`` over 1, attention where ``i % attn_every == 0`` and
+    Mamba2 elsewhere, else attention throughout; with experts, a MoE FFN
+    where ``i % moe_every == moe_every - 1`` and a dense one elsewhere.
+    The FLOPs do not depend on where attention sits in a period."""
+    family, L = m["family"], m["num_layers"]
+    attn_every, moe_every = m.get("attn_every", 0), m.get("moe_every", 1)
+    experts = m.get("num_experts", 0)
+    period = 1
+    if attn_every > 1:
+        period = math.lcm(period, attn_every)
+    if experts and moe_every > 1:
+        period = math.lcm(period, moe_every)
+    if L % period:
+        raise ValueError(f"{L} layers are not whole periods of {period}")
+    spec = []
+    for i in range(period):
+        if family == "ssm":
+            mixer = "mamba"
+        elif attn_every > 1:
+            mixer = "attn" if i % attn_every == 0 else "mamba"
+        else:
+            mixer = "attn"
+        if family == "ssm":
+            ffn = "none"
+        elif experts:
+            ffn = "moe" if i % moe_every == moe_every - 1 else "dense"
+        else:
+            ffn = "dense"
+        spec.append((mixer, ffn))
+    return spec * (L // period)
+
+
+def mixers(m: dict) -> set:
+    """The kinds of mixer the model's layers hold."""
+    return {mixer for mixer, _ in layer_kinds(m)}
+
+
 def model_flops(m: dict, batch: int, seq: int) -> dict:
-    """The FLOPs one forward of (batch, seq) tokens needs, by part: the
-    dense products (attention projections, the router, the experts each
-    token is routed to, the Mamba2 projections), the causal attention
-    products, the SSD chunk products, and the unembedding of every
-    position (the forward computes all of them). Elementwise work, norms
-    and the depthwise convolution are not counted."""
+    """The FLOPs one forward of (batch, seq) tokens needs, by part, summed
+    over ``layer_kinds``: the dense products (a Mamba2 mixer's in- and
+    out-projections; an attention mixer's q, k, v and o projections; a
+    dense SwiGLU; a MoE FFN's router, the experts each token is routed to
+    and, with ``moe_shared_expert``, the shared SwiGLU of width
+    ``shared_expert_d_ff``, else the experts' width), the causal attention
+    products, the SSD chunk products, and the unembedding of every position
+    (the forward computes all of them). Elementwise work, norms and the
+    depthwise convolution are not counted."""
     T = batch * seq
-    D, L = m["d_model"], m["num_layers"]
-    dense = attn = ssm = 0.0
-    if m["family"] == "ssm":
+    D = m["d_model"]
+    kinds = layer_kinds(m)
+    held = {mixer for mixer, _ in kinds}
+    by_mixer = {}  # a mixer's multiply-adds a token in its projections, its kernel's FLOPs
+    if "mamba" in held:
         di = m["ssm_expand"] * D
         H = di // m["ssm_headdim"]
-        dense = 2.0 * T * (D * (2 * di + 2 * m["ssm_state"] + H) + di * D) * L
-        ssm = ssd_call(*ssd_shape(m, batch, seq))["flops"] * L
-    else:
+        by_mixer["mamba"] = (D * (2 * di + 2 * m["ssm_state"] + H) + di * D,
+                             ssd_call(*ssd_shape(m, batch, seq))["flops"])
+    if "attn" in held:
         Hq, Hkv, Dh = m["num_heads"], m["num_kv_heads"], m["head_dim"]
-        proj = D * Hq * Dh * 2 + D * Hkv * Dh * 2
-        ffn = 3 * D * m["expert_d_ff"] * m["experts_per_token"] + D * m["num_experts"]
-        dense = 2.0 * T * (proj + ffn) * L
-        attn = attention_call(*attention_shape(m, batch, seq))["flops"] * L
+        by_mixer["attn"] = (D * Hq * Dh * 2 + D * Hkv * Dh * 2,
+                            attention_call(*attention_shape(m, batch, seq))["flops"])
+    ffns = {"none": 0, "dense": 3 * D * m.get("d_ff", 0)}  # multiply-adds a token
+    if m.get("num_experts"):
+        expert_ff = m.get("expert_d_ff") or m["d_ff"]
+        ffns["moe"] = 3 * D * expert_ff * m["experts_per_token"] + D * m["num_experts"]
+        if m.get("moe_shared_expert"):
+            ffns["moe"] += 3 * D * (m.get("shared_expert_d_ff") or expert_ff)
+    dense = attn = ssm = 0.0
+    for mixer, ffn in kinds:
+        proj, call = by_mixer[mixer]
+        dense += 2.0 * T * (proj + ffns[ffn])
+        if mixer == "mamba":
+            ssm += call
+        else:
+            attn += call
     unembed = 2.0 * T * D * m["vocab_size"]
     return {"dense": dense, "attention": attn, "ssd": ssm, "unembed": unembed,
             "total": dense + attn + ssm + unembed}

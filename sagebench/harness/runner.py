@@ -15,7 +15,9 @@ function's weights to ``_model_function`` in place of the ones it would
 draw (``_host_params``); the reference draws the same ones again once the
 program's state is gone. Around the function's handler the harness keeps
 its own span (``handler``): when the handler began, after the runtime's
-compute lock, and when it returned."""
+compute lock, and when it returned. It also keeps the program's own spans
+of each invocation and its counters' changes over the window
+(``harness/spans.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,7 +29,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from harness import counts, trace as tracing, traffic, weights
+from harness import counts, spans as program_spans, trace as tracing, traffic, weights
 
 FOREIGN = ("jax", "jaxlib", "flax", "repro")
 LATE_S = 60.0  # how long past the window's close an answer is waited for
@@ -61,7 +63,7 @@ class Program:
     for each weight tree of ``host_weights``."""
 
     def __init__(self, model: dict, host_weights: List[dict], batch: int, seq: int, device,
-                 capacity_bytes: Optional[int] = None):
+                 capacity_bytes: Optional[int] = None, compute: Optional[dict] = None):
         from repro_torch.configs.base import ModelConfig
         from repro_torch.core import functions
         from repro_torch.data.database import Database
@@ -70,7 +72,9 @@ class Program:
         self.cfg = ModelConfig(**model)
         self.db = Database(device=self.device)
         self.capacity_bytes = capacity_bytes
+        self.compute = compute
         self.spans: Dict[str, tuple] = {}
+        self.program_spans: Dict[str, list] = {}
         self.fns = []
         drawn = functions._host_params
         try:
@@ -98,6 +102,8 @@ class Program:
         from repro_torch.core.runtime import SageRuntime
 
         sized = {} if self.capacity_bytes is None else {"device_capacity": self.capacity_bytes}
+        if self.compute is not None:
+            sized["compute"] = self.compute
         rt = SageRuntime("sage", database=self.db, time_scale=0.0, exit_ttl=3600.0,
                          load_timeout_s=300.0, device=str(self.device), **sized)
         rt.sage_init()
@@ -119,8 +125,26 @@ class Program:
         return req
 
     def keep_records(self, rt) -> None:
+        """The node's records and, where the program records them, each
+        invocation's spans: kept before a fresh node is retired."""
+        spans_of = getattr(rt.telemetry, "spans_of", None)
         for rec in rt.telemetry.snapshot():
             self.records[rec.request_id] = rec
+            if spans_of is not None:
+                self.program_spans[rec.request_id] = spans_of(rec.request_id)
+
+    def counters(self) -> dict:
+        """The program's counters now (``spans.py``): the database's copied
+        bytes and seconds, and the forwards by kind summed over the
+        functions; a counter the program lacks is left out."""
+        from repro_torch.core import functions
+
+        out = {k: getattr(self.db, k) for k in ("h2d_bytes", "h2d_s") if hasattr(self.db, k)}
+        for k in program_spans.FORWARDS:
+            by_function = getattr(functions, k, None)
+            if by_function is not None:
+                out[k] = sum(by_function.values())
+        return out
 
 
 def _sync(device) -> None:
@@ -248,7 +272,7 @@ def setup(config: dict, mix: dict, seed: int, device, reference, log) -> tuple:
     fn_order = traffic.function_order(mix)
     prog = Program(m, host, int(mix["batch"]), int(mix["seq"]), device,
                    int(CARD_SHARE * torch.cuda.get_device_properties(device).total_memory)
-                   if cuda else None)
+                   if cuda else None, mix.get("compute"))
     del host
     marks.append(("program", time.monotonic()))
     served = []
@@ -291,6 +315,7 @@ def run_cell(config: dict, mix: dict, *, seed: int, seconds: float, trace: bool,
     prog, rt, host_prompts, order, fn_order = setup(config, mix, seed, device, reference, log)
     stats0 = dict(rt.daemon.stats) if rt is not None else {}
     _sync(device)
+    counters0 = prog.counters()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     prof = tracing.start() if trace else None
@@ -302,7 +327,7 @@ def run_cell(config: dict, mix: dict, *, seed: int, seconds: float, trace: bool,
     with torch.profiler.record_function(tracing.WINDOW):
         if mix["loop"] == "open":
             due = traffic.open_schedule(float(mix["rate_per_s"]), seconds,
-                                        int(mix["schedule_seed"]))
+                                        int(mix["schedule_seed"]), mix.get("burst"))
             invs = run_open(prog, rt, host_prompts, order, fn_order, due, t0)
             deadline = t_end + LATE_S
             while any(v.done is None for v in invs) and time.monotonic() < deadline:
@@ -311,6 +336,7 @@ def run_cell(config: dict, mix: dict, *, seed: int, seconds: float, trace: bool,
             invs = run_closed(prog, rt, host_prompts, order, fn_order, int(mix["clients"]),
                               fresh, t0, t_end)
         _sync(device)
+        counters1 = prog.counters()
     summary = None
     if prof is not None:
         prof.stop()
@@ -324,28 +350,30 @@ def run_cell(config: dict, mix: dict, *, seed: int, seconds: float, trace: bool,
         if inv.out_key is not None:
             inv.answer = prog.db.fetch(inv.out_key)
     records = {inv.uuid: prog.records.get(inv.uuid) for inv in invs}
+    own = {inv.uuid: prog.program_spans.get(inv.uuid) for inv in invs}
     spans = dict(prog.spans)
     if rt is not None:
         retire(prog, rt)
     context = {
-        "invocations": [_record(inv, records.get(inv.uuid), spans.get(inv.uuid), t0)
-                        for inv in invs],
+        "invocations": [_record(inv, records.get(inv.uuid), spans.get(inv.uuid), t0,
+                                own.get(inv.uuid)) for inv in invs],
         "seconds": seconds, "setup_s": setup_s,
         "stats": {k: stats1.get(k, 0) - stats0.get(k, 0) for k in stats1},
+        "counters": {k: v - counters0[k] for k, v in counters1.items() if k in counters0},
         "trace": summary, "model": m, "mix": mix, "batch": batch, "seq": seq,
         "flops_per_invocation": counts.model_flops(m, batch, seq)["total"],
         "memory_peak_bytes": peak,
     }
-    del rt, prog, records, spans
+    del rt, prog, records, spans, own
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     return {"context": context, "invocations": invs}
 
 
-def _record(inv: Invocation, rec, span, t0: float) -> dict:
+def _record(inv: Invocation, rec, span, t0: float, own: Optional[list] = None) -> dict:
     """One invocation of the window as the metrics read it: times in
-    seconds from the window's start."""
+    seconds from the window's start; ``own`` is the program's spans of it."""
     out = {"index": inv.index, "prompt": inv.prompt, "function": inv.function,
            "due": inv.due - t0,
            "sent": inv.sent - t0, "done": None if inv.done is None else inv.done - t0,
@@ -355,6 +383,8 @@ def _record(inv: Invocation, rec, span, t0: float) -> dict:
         out.update({"arrival": rec.arrival_t - t0, "start": rec.start_t - t0,
                     "end": rec.end_t - t0, "warm_stage": rec.warm_stage,
                     "stages": dict(rec.stages), "setup_wall": rec.setup_wall})
+        if own is not None:
+            out["spans"] = [(n, a - t0, b - t0) for n, a, b in own]
     if span is not None:
         out["handler"] = (span[0] - t0, span[1] - t0)
     return out

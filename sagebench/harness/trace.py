@@ -7,6 +7,7 @@ thread that drives it. From the raw events this module takes:
 * the device's busy intervals in the window: kernels, copies and memsets
   (every event on the card but the ranges that mark host annotations),
   merged, so ``busy_s`` is the time in which anything ran on the card;
+* the card's idle intervals, in seconds from the window's start;
 * each kernel's summed device time and count, by name;
 * the longest idle gaps of the card, each named by what the host was doing
   at its middle: the innermost host event (an operator or a runtime call)
@@ -18,6 +19,8 @@ from collections import defaultdict
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from harness import spans
 
 WINDOW = "sagebench.window"
 
@@ -86,17 +89,12 @@ def summarize(prof, top: int = 10) -> Optional[dict]:
             host.append((s, t, e.name()))
     if not dev:
         return None
-    dev.sort()
-    merged = [list(dev[0])]
-    for s, t in dev[1:]:
-        if s <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], t)
-        else:
-            merged.append([s, t])
+    merged = spans.merged(dev)
     busy_ns = sum(t - s for s, t in merged)
     gaps = [(merged[0][0] - w0, w0, merged[0][0])]
     gaps += [(b[0] - a[1], a[1], b[0]) for a, b in zip(merged, merged[1:])]
     gaps.append((w1 - merged[-1][1], merged[-1][1], w1))
+    idle = [((a - w0) / 1e9, (b - w0) / 1e9) for length, a, b in gaps if length > 0]
     gaps = sorted(gaps, reverse=True)[:top]
     if host:
         hs = np.array([h[0] for h in host], dtype=np.int64)
@@ -114,6 +112,7 @@ def summarize(prof, top: int = 10) -> Optional[dict]:
     return {
         "window_s": (w1 - w0) / 1e9,
         "busy_s": busy_ns / 1e9,
+        "idle": idle,
         "kernels": {k: {"seconds": v[0], "count": v[1]} for k, v in by_kernel.items()},
         "device_ops": [[k, v] for k, v in ops],
         "idle_gaps": [[k, v] for k, v in sorted(named.items(), key=lambda kv: -kv[1])],

@@ -20,14 +20,22 @@ Parameters of a mix:
   each the configuration with weights of its own drawn from the run's
   seed; invocation ``i`` goes to ``function_order(mix)[i % ORDER_LEN]``;
 * ``zipf_s``: the functions' popularity, function ``k``'s share in
-  proportion to ``1 / (k + 1) ** zipf_s`` (0: all alike).
+  proportion to ``1 / (k + 1) ** zipf_s`` (0: all alike);
+* ``burst`` (open): ``{"on_s", "period_s"}``: arrivals fall only in the
+  first ``on_s`` seconds of each ``period_s``, at ``rate_per_s`` within
+  those windows;
+* ``compute``: the node's compute plane, an object handed to
+  ``SageRuntime(compute=...)`` (absent: the runtime's default, one
+  invocation's forward at a time under the node's lock).
 
 An open schedule's gaps are the quantiles of the exponential distribution
 at (i + 1/2) / n, n = rate x seconds, shuffled by ``schedule_seed`` and
-scaled to fill the window. So every run of a mix sends the same invocations
-at the same times, a fixed sample of Poisson arrivals, whatever its seed:
-the order of the gaps sets how the queue builds, and with the order drawn
-from each run's seed the tails of runs at the same load spread by 30 % (an
+scaled to fill the window (with ``burst``: the on-windows' seconds laid end
+to end, then each due time moved into its own on-window). So every run of
+a mix sends the same invocations at the same times, a fixed sample of
+Poisson arrivals, whatever its seed: the order of the gaps sets how the
+queue builds, and with the order drawn from each run's seed the tails of
+runs at the same load spread by 30 % (an
 H100 80GB HBM3, 7.1 invocations/s of mamba2-780m). The run's seed draws the
 weights, the prompts and their order. The functions' order is fixed by the
 mix alone (``schedule_seed``), so every run's seed sends each function the
@@ -35,7 +43,7 @@ same invocations."""
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -43,7 +51,7 @@ import torch
 from harness import weights
 
 KEYS = {"loop", "rate_per_s", "clients", "fresh_node", "batch", "seq", "prompts",
-        "warm_invocations", "schedule_seed", "functions", "zipf_s", "about"}
+        "warm_invocations", "schedule_seed", "functions", "zipf_s", "burst", "compute", "about"}
 ORDER_LEN = 1000
 
 
@@ -59,6 +67,15 @@ def validate(mix: dict) -> dict:
             raise ValueError("a closed loop needs clients >= 1")
     else:
         raise ValueError(f"loop must be open or closed, not {mix['loop']!r}")
+    if "burst" in mix:
+        burst = mix["burst"]
+        if (mix["loop"] != "open" or not isinstance(burst, dict)
+                or set(burst) != {"on_s", "period_s"}
+                or not 0 < float(burst["on_s"]) <= float(burst["period_s"])):
+            raise ValueError("a burst is {on_s, period_s} with 0 < on_s <= period_s, "
+                             "in an open loop")
+    if "compute" in mix and not isinstance(mix["compute"], dict):
+        raise ValueError("compute must be an object of the runtime's compute settings")
     for k in ("batch", "seq", "prompts"):
         if not int(mix[k]) >= 1:
             raise ValueError(f"{k} must be >= 1")
@@ -76,13 +93,23 @@ def rng(seed: int, stream: int) -> np.random.Generator:
     return np.random.default_rng([int(seed) % (1 << 63), stream])
 
 
-def open_schedule(rate: float, seconds: float, seed: int) -> List[float]:
-    """Due times in [0, seconds) of an open Poisson loop at ``rate``."""
-    n = max(1, int(round(rate * seconds)))
+def open_schedule(rate: float, seconds: float, seed: int,
+                  burst: Optional[dict] = None) -> List[float]:
+    """Due times in [0, seconds) of an open Poisson loop at ``rate``; with
+    ``burst``, only in the first ``on_s`` of each ``period_s``."""
+    on = seconds
+    if burst is not None:
+        on_s, period_s = float(burst["on_s"]), float(burst["period_s"])
+        whole = math.floor(seconds / period_s)
+        on = whole * on_s + min(on_s, seconds - whole * period_s)
+    n = max(1, int(round(rate * on)))
     gaps = np.array([-math.log(1.0 - (i + 0.5) / n) / rate for i in range(n)])
     gaps = gaps[rng(seed, 1).permutation(n)]
-    due = np.concatenate([[0.0], np.cumsum(gaps)[:-1]])
-    return list(due * (seconds / gaps.sum()))
+    due = np.concatenate([[0.0], np.cumsum(gaps)[:-1]]) * (on / gaps.sum())
+    if burst is not None:
+        k = np.floor(due / on_s)
+        due = k * period_s + np.clip(due - k * on_s, 0.0, on_s)
+    return list(due)
 
 
 def prompt_order(n_prompts: int, seed: int) -> List[int]:

@@ -19,7 +19,9 @@ it), then, last, the result: ``correct``, ``attempted``, ``failed``,
 ``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its
 per-layer ones, each read by ``sagebench/metrics/<name>.py`` or, where a
 suffixed name has none, its stem's), ``device``
-(and ``breakdown`` when traced), and ``checks``, each number compared with
+(and ``breakdown`` when traced: the device's longest operations, its
+longest idle gaps by what the host was doing, and its idle seconds by the
+program's span open then, ``idle_by_span``), and ``checks``, each number compared with
 its limit. Standard error ends with the same numbers, one to a line.
 
 Exit codes: 2 without a card (or fewer than the cell asks for), 3 if JAX,
@@ -76,7 +78,7 @@ def main() -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args()
 
-    from harness import check, manifest, readers, runner, traffic
+    from harness import check, manifest, readers, runner, spans, traffic
 
     bench = manifest.benchmark()
     cell = manifest.cell(bench, args.workload)
@@ -140,6 +142,9 @@ def main() -> int:
             device.update(busy_s=summary["busy_s"], window_s=summary["window_s"])
             result["breakdown"] = {"device_ops": summary["device_ops"],
                                    "idle_gaps": summary["idle_gaps"]}
+            by_span = spans.idle_by_span_of(ctx)
+            if by_span is not None:
+                result["breakdown"]["idle_by_span"] = [[k, v] for k, v in by_span.items()][:10]
     del run, ctx
     t = time.monotonic()
     verdict = check.check(config, mix, args.seed, "cuda", reference, invs)

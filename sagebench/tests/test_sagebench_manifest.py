@@ -1,6 +1,7 @@
 """The benchmark's manifest (``BENCHMARK.json``) against its contract, and
 every file a cell finds by name."""
 import json
+import math
 import re
 import sys
 from pathlib import Path
@@ -11,7 +12,7 @@ HERE = Path(__file__).resolve().parents[1]
 ROOT = HERE.parent
 sys.path.insert(0, str(HERE))
 
-from harness import manifest, traffic  # noqa: E402
+from harness import counts, manifest, traffic  # noqa: E402
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -93,15 +94,99 @@ def test_every_name_finds_its_files():
         assert callable(manifest.reader(m["name"]).read), m["name"]
 
 
-@pytest.mark.parametrize("name", [c["name"] for c in BENCH["configs"]])
+CONFIGS = [c["name"] for c in BENCH["configs"]]
+# what a cell may hold of a layer as one chip's share of it, or of the stack as one
+# stage of a pipeline; every other published width is kept
+CUTTABLE = {"num_layers", "num_experts", "num_heads", "num_kv_heads", "vocab_size"}
+
+
+@pytest.mark.parametrize("name", CONFIGS)
 def test_configurations_keep_published_widths(name):
+    """The file's ``published`` gives each width the model-configs guide
+    names, under the program's key, at its published value: the model
+    holds it, unless ``reduced`` lists the key (a share or a cut in depth),
+    and then it differs."""
     doc = manifest.config(name)
-    m = doc["model"]
-    if name == "olmoe-1b-7b":
-        assert (m["d_model"], m["num_layers"], m["num_heads"], m["head_dim"]) == (2048, 16, 16, 128)
-        assert (m["num_experts"], m["experts_per_token"], m["expert_d_ff"]) == (64, 8, 1024)
-        assert m["vocab_size"] == doc["vocab_size"] == 50304
-    else:
-        assert (m["d_model"], m["num_layers"], m["ssm_state"], m["ssm_headdim"]) == (1536, 48, 128, 64)
-        assert m["ssm_expand"] * m["d_model"] // m["ssm_headdim"] == 48
+    m, published = doc["model"], doc["published"]
+    assert published, name
+    for k, v in published.items():
+        if k in doc["reduced"]:
+            assert k in CUTTABLE and m[k] != v, k
+        else:
+            assert m[k] == v, k
     assert m["param_dtype"] == m["compute_dtype"] == "bfloat16"
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_every_configuration_is_counted_layer_by_layer(name):
+    m = manifest.config(name)["model"]
+    kinds = counts.layer_kinds(m)
+    assert len(kinds) == m["num_layers"]
+    assert {mx for mx, _ in kinds} <= {"attn", "mamba"}
+    assert {f for _, f in kinds} <= {"none", "dense", "moe"}
+    flops = counts.model_flops(m, 4, 1024)
+    parts = ("dense", "attention", "ssd", "unembed")
+    assert flops["total"] == pytest.approx(sum(flops[k] for k in parts), rel=1e-12)
+    assert flops["dense"] > 0 and flops["unembed"] > 0
+    assert (flops["attention"] > 0) == ("attn" in counts.mixers(m))
+    assert (flops["ssd"] > 0) == ("mamba" in counts.mixers(m))
+
+
+K1 = ["void tc::flash_fwd_bf16_kernel<128>"]
+K3 = ["void tc::ssd_chunk_cb_kernel<float>", "void tc::ssd_chunk_state_kernel<float>",
+      "void tc::ssd_state_pass_kernel<float>", "void tc::ssd_chunk_scan_kernel<float>"]
+
+
+def traced_context(config: dict, mix: dict, seconds: float = 10.0, n: int = 20) -> dict:
+    """A hand-made context of a traced run of ``n`` invocations, with every
+    reading a run can give: the records' stages and the program's spans,
+    the daemon's stats, the counters, and a trace whose hand kernels run at
+    a quarter of their bound for each layer that holds them."""
+    m = config["model"]
+    batch, seq = int(mix["batch"]), int(mix["seq"])
+    invs = []
+    for i in range(n):
+        t = i * seconds / (n + 1)
+        h = (t + 0.05, t + 0.15)
+        invs.append({"index": i, "prompt": 0, "function": 0, "due": t, "sent": t,
+                     "done": t + 0.17, "failed": False, "error": None, "node": None,
+                     "arrival": t + 0.01, "start": t + 0.02, "end": t + 0.16, "warm_stage": 1,
+                     "stages": {"gpu_ctx": 0.03, "gpu_data": 0.01, "compute": 0.1},
+                     "setup_wall": 0.04, "handler": h,
+                     "spans": [("lock_wait", t + 0.02, h[0]), ("data_wait", h[0], h[0] + 0.01),
+                               ("forward", h[0] + 0.01, h[1])]})
+    kinds = counts.layer_kinds(m)
+    kernels = {}
+    for names, mixer, bound, shape in (
+            (K1, "attn", counts.attention_call, counts.attention_shape),
+            (K3, "mamba", counts.ssd_call, counts.ssd_shape)):
+        calls = n * sum(1 for mx, _ in kinds if mx == mixer)
+        if not calls:
+            continue
+        least = bound(*shape(m, batch, seq))["bound_s"]
+        for k in names:  # together four times the bound
+            kernels[k] = {"seconds": 4 * calls * least / len(names), "count": calls}
+    return {"invocations": invs, "seconds": seconds, "setup_s": 12.0, "model": m, "mix": mix,
+            "batch": batch, "seq": seq, "stats": {"shared_hits": n},
+            "counters": {"h2d_bytes": 10**10, "h2d_s": 0.25, "graph_replays": n - 1,
+                         "graph_captures": 1, "eager_forwards": 0},
+            "trace": {"window_s": seconds, "busy_s": seconds - 2.0, "kernels": kernels,
+                      "idle": [(0.0, 1.0), (5.0, 6.0)]},
+            "flops_per_invocation": counts.model_flops(m, batch, seq)["total"],
+            "memory_peak_bytes": 1}
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_every_metric_of_a_cell_reads_its_context(cell):
+    """Each end-to-end and per-layer metric of the cell reads a number from
+    a traced context of its configuration and mix; no share passes 100 %."""
+    w = manifest.cell(BENCH, cell)
+    ctx = traced_context(manifest.config(w["config"]), manifest.mix(w["traffic"]))
+    for kind in ("end_to_end", "per_layer"):
+        specs = manifest.metrics_of(BENCH, cell, kind)
+        got = manifest.read_all(specs, ctx)
+        assert set(got) == {m["name"] for m in specs}, (cell, kind)
+        for name, v in got.items():
+            assert math.isfinite(v["value"]) and v["value"] >= 0, name
+            if v["unit"] == "%":
+                assert v["value"] <= 100, name

@@ -4,6 +4,7 @@ import math
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -139,3 +140,78 @@ def test_the_check_samples_every_function_before_a_second_pair():
 def test_a_metric_without_a_reader_of_its_own_takes_its_stem_s():
     assert manifest.reader("compute_ms.train").__file__.endswith("metrics/compute_ms.py")
     assert manifest.reader("queue_ms.warm").__file__.endswith("metrics/queue_ms.warm.py")
+
+
+def _before(rate, seconds, seed):
+    """The open schedule as the generator drew it before bursts were added."""
+    n = max(1, int(round(rate * seconds)))
+    gaps = np.array([-math.log(1.0 - (i + 0.5) / n) / rate for i in range(n)])
+    gaps = gaps[traffic.rng(seed, 1).permutation(n)]
+    due = np.concatenate([[0.0], np.cumsum(gaps)[:-1]])
+    return list(due * (seconds / gaps.sum()))
+
+
+@pytest.mark.parametrize("name", sorted(p.stem for p in (HERE / "traffic").glob("*.json")))
+def test_the_committed_mixes_give_the_schedules_they_gave(name):
+    mix = traffic.validate(manifest.mix(name))
+    assert "burst" not in mix and "compute" not in mix
+    if mix["loop"] == "open":
+        got = traffic.open_schedule(float(mix["rate_per_s"]), 51, int(mix["schedule_seed"]),
+                                    mix.get("burst"))
+        assert got == _before(float(mix["rate_per_s"]), 51, int(mix["schedule_seed"]))
+
+
+@pytest.mark.parametrize("seconds,on_s,period_s", [(51, 5.1, 51), (51, 1.0, 10.0),
+                                                   (30, 2.0, 7.0), (20, 5.0, 5.0)])
+def test_bursts_fall_in_their_on_windows_at_the_mix_s_rate(seconds, on_s, period_s):
+    rate = 18.0
+    due = traffic.open_schedule(rate, seconds, 1001, {"on_s": on_s, "period_s": period_s})
+    whole = math.floor(seconds / period_s)
+    on = whole * on_s + min(on_s, seconds - whole * period_s)
+    assert len(due) == round(rate * on)
+    assert due == sorted(due) and 0 <= due[0] and due[-1] < seconds
+    for t in due:  # every arrival inside the first on_s of its period
+        assert t - math.floor(t / period_s) * period_s <= on_s + 1e-9, t
+    assert len(due) / on == pytest.approx(rate, rel=0.02)
+    # the same gaps as an unbroken schedule of the on-windows laid end to end
+    assert due == traffic.open_schedule(rate, seconds, 1001,
+                                        {"on_s": on_s, "period_s": period_s})
+    if on_s == period_s:
+        assert due == pytest.approx(traffic.open_schedule(rate, seconds, 1001))
+
+
+@pytest.mark.parametrize("bad", [{"burst": {"on_s": 2.0}},
+                                 {"burst": {"on_s": 3.0, "period_s": 2.0}},
+                                 {"burst": {"on_s": 0.0, "period_s": 2.0}},
+                                 {"loop": "closed", "clients": 1,
+                                  "burst": {"on_s": 1.0, "period_s": 2.0}},
+                                 {"compute": "shared"}])
+def test_bursts_and_compute_planes_out_of_form_are_refused(bad):
+    mix = {"loop": "open", "rate_per_s": 9.0, "schedule_seed": 1, "batch": 1, "seq": 8,
+           "prompts": 1, **bad}
+    with pytest.raises(ValueError):
+        traffic.validate(mix)
+
+
+def test_the_mix_s_compute_plane_reaches_the_node():
+    from harness import runner
+
+    compute = {"mode": "shared", "max_batch": 4}
+    mix = traffic.validate({"loop": "open", "rate_per_s": 20.0, "schedule_seed": 1,
+                            "batch": 2, "seq": 16, "prompts": 1, "compute": compute,
+                            "burst": {"on_s": 0.1, "period_s": 0.2}})
+    m = dict(manifest.config("mamba2-780m")["model"], **manifest.config("mamba2-780m")["small"])
+    ref = manifest.reference("mamba2-780m")
+    prog = runner.Program(m, [weights.make(ref.layout(m), 1, "cpu")], 2, 16, "cpu",
+                          compute=mix["compute"])
+    rt = prog.node()
+    try:
+        assert rt.compute_stats()["mode"] == "shared"
+        assert rt._compute.max_batch == 4
+    finally:
+        rt.shutdown()
+    plain = runner.Program(m, [weights.make(ref.layout(m), 1, "cpu")], 2, 16, "cpu").node()
+    try:
+        assert plain.compute_stats()["mode"] == "exclusive"
+    finally:
+        plain.shutdown()

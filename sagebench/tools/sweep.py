@@ -59,7 +59,8 @@ def main() -> int:
     climbing = True
     for frac in sorted(float(f) for f in args.fractions.split(",")):
         rate = frac * mu
-        due = traffic.open_schedule(rate, args.seconds, int(mix["schedule_seed"]))
+        due = traffic.open_schedule(rate, args.seconds, int(mix["schedule_seed"]),
+                                    mix.get("burst"))
         t0 = time.monotonic()
         invs = runner.run_open(prog, rt, prompts, order, fn_order, due, t0)
         while (any(v.done is None for v in invs)
